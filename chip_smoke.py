@@ -1,0 +1,390 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+1. prints the card's name and power limit (nvidia-smi);
+2. builds the CUDA kernels from ``src/repro_torch/csrc`` into ``build/``;
+3. holds each kernel against its plain PyTorch version on the card, at the
+   main path's shapes, and fails on any tolerance miss;
+4. times each kernel beside its bound (the larger of bytes over the HBM
+   rate and fp32 operations over the fp32 rate), its plain version and,
+   where one exists, the single PyTorch call computing the same function;
+5. trains full-width ResNet-50 at 224 px through ``Trainer.run`` over a
+   two-stage batch-size plan (32 then 64 images a step), and fails on a
+   non-finite loss, a skipped step or a kernel the run did not launch;
+6. runs a tiny ResNet two steps on the card and on the CPU from the same
+   weights and batches, and fails if they disagree;
+7. prints one ``{"kernels": [...]}`` line, the card line again, and as the
+   last line ``{"ok": true, "device": {...}}``.
+
+Exits non-zero, printing no result, when CUDA is absent or the port is not
+beside this file. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory, NVIDIA data sheet
+FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+SMOOTHING = 0.1
+LARS_KW = dict(lr=2.0, mom=0.9, eta=0.01, weight_decay=5e-5, eps=1e-6)
+# kernel vs plain version on the same inputs; both compute in fp32, so the
+# differences are summation order and fused multiply-adds
+LARS_ATOL = 1e-6
+XENT_FWD_TOL = (1e-4, 1e-5)        # (atol, rtol) on the per-row loss and lse
+XENT_BWD_TOL = {"float32": (1e-6, 1e-5),
+                "bfloat16": (1e-6, 2.0 ** -7)}   # one bf16 rounding step
+# tiny ResNet, fp32, card vs host: cuDNN and the CPU sum convolutions in
+# different orders, and two LARS steps carry that difference forward
+TINY_TOL = 1e-3
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def graph_ms(torch, fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of one ``fn()`` call: ``iters`` calls captured in a CUDA
+    graph, replayed ``replays`` times between CUDA events (no host launch
+    cost inside the window)."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def eager_ms(torch, fn, iters: int = 20) -> float:
+    """Time of one eager ``fn()`` call between CUDA events, host launch
+    cost included (what the main path pays)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.nn.functional as F
+
+    from repro_torch.core import lars, losses
+    from repro_torch.core.batch_control import build_plan
+    from repro_torch.core.schedules import BatchSchedule, BatchStage
+    from repro_torch.data import augment
+    from repro_torch.data.synthetic import SyntheticImageNet, generator
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.lars_update import lars_update_cuda
+    from repro_torch.kernels.ls_xent import ls_xent_bwd_cuda, ls_xent_fwd_cuda
+    from repro_torch.models import resnet
+    from repro_torch.train.state import TrainState
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    card = gpu_line()
+    print(f"gpu: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("tf32: matmul off, cudnn off (fp32 comparisons run in full fp32)")
+    dev = torch.device("cuda")
+
+    # -- build ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    built = not build.library_path().exists()
+    build.library()
+    print(f"build: {'built' if built else 'loaded'} {build.library_path().name} "
+          f"in {time.perf_counter() - t0:.1f} s")
+    for line in build.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def randn(shape, scale, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+
+    # -- the main path's shapes ---------------------------------------------
+    cfg = resnet.ResNetConfig.resnet50(num_classes=1000, image_size=224)
+    model = resnet.init(cfg, seed=0)
+    n_params = resnet.num_params(model)
+    lars_shapes = [tuple(p.shape) for n, p in model.named_parameters()
+                   if not lars.is_skip(n, lars.LARSConfig())]
+    print(f"resnet50: {n_params} params, {len(lars_shapes)} LARS leaves")
+    if len(lars_shapes) != 54:
+        fail(f"expected 54 LARS leaves, found {len(lars_shapes)}")
+
+    # -- kernels vs plain versions -------------------------------------------
+    lars_err = 0.0
+    for shape in lars_shapes:
+        p, g, v = randn(shape, 0.05), randn(shape, 0.01), randn(shape, 1e-3)
+        for nesterov in (False, True):
+            pk, vk = ops.lars_update(p, g, v, **LARS_KW, nesterov=nesterov)
+            pr, vr = ref.lars_update_ref(p, g, v, **LARS_KW, nesterov=nesterov)
+            lars_err = max(lars_err, (pk - pr).abs().max().item(),
+                           (vk - vr).abs().max().item())
+    torch.cuda.synchronize()
+    print(f"check lars_update: 54 leaves x nesterov off/on, max_abs_err "
+          f"{lars_err:.3e} (tol {LARS_ATOL:g})")
+    if not lars_err <= LARS_ATOL:
+        fail("lars_update disagrees with lars_update_ref")
+
+    xent_cases = [(32, 1000), (64, 1000), (256, 32768)]
+    fwd_err = bwd_err = 0.0
+    for rows, vocab in xent_cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn((rows, vocab), 4.0, dtype)
+            y = torch.randint(0, vocab, (rows,), generator=gen, device=dev)
+            gout = torch.rand(rows, generator=gen, device=dev) / rows
+            loss_k, lse_k = ls_xent_fwd_cuda(x, y, SMOOTHING)
+            loss_r, lse_r = ref.ls_xent_fwd_ref(x, y, SMOOTHING)
+            atol, rtol = XENT_FWD_TOL
+            for got, want in ((loss_k, loss_r), (lse_k, lse_r)):
+                err = (got - want).abs()
+                fwd_err = max(fwd_err, err.max().item())
+                if not bool((err <= atol + rtol * want.abs()).all()):
+                    fail(f"ls_xent_fwd {rows}x{vocab} {dtype}: max_abs_err "
+                         f"{err.max().item():.3e}")
+            d_k = ls_xent_bwd_cuda(x, y, lse_r, gout, SMOOTHING).float()
+            d_r = ref.ls_xent_bwd_ref(x, y, lse_r, gout, SMOOTHING).float()
+            atol, rtol = XENT_BWD_TOL[str(dtype).split(".")[-1]]
+            err = (d_k - d_r).abs()
+            bwd_err = max(bwd_err, err.max().item())
+            if not bool((err <= atol + rtol * d_r.abs()).all()):
+                fail(f"ls_xent_bwd {rows}x{vocab} {dtype}: max_abs_err "
+                     f"{err.max().item():.3e}")
+            print(f"check ls_xent {rows}x{vocab} {str(dtype)[6:]}: fwd err "
+                  f"{(loss_k - loss_r).abs().max().item():.3e}, bwd err "
+                  f"{err.max().item():.3e}")
+    print(f"check ls_xent: fwd max_abs_err {fwd_err:.3e} (tol {XENT_FWD_TOL[0]:g} "
+          f"+ {XENT_FWD_TOL[1]:g}|ref|), bwd max_abs_err {bwd_err:.3e} "
+          f"(tol fp32 1e-6 + 1e-5|ref|, bf16 1e-6 + 2^-7|ref|)")
+
+    # -- timing at the main path's shapes ------------------------------------
+    leaves = [(randn(s, 0.05), randn(s, 0.01), randn(s, 1e-3)) for s in lars_shapes]
+    trusts = [ref.lars_trust(p, g, eta=0.01, weight_decay=5e-5, eps=1e-6)
+              for p, g, _ in leaves]
+    lars_elems = sum(p.numel() for p, _, _ in leaves)
+    lars_kw_k = dict(lr=2.0, mom=0.9, weight_decay=5e-5)
+
+    def lars_ops():
+        for p, g, v in leaves:
+            ops.lars_update(p, g, v, **LARS_KW)
+
+    def lars_kernel_only():
+        for (p, g, v), t in zip(leaves, trusts):
+            lars_update_cuda(p, g, v, t, **lars_kw_k)
+
+    def lars_plain():
+        for p, g, v in leaves:
+            ref.lars_update_ref(p, g, v, **LARS_KW)
+
+    timing = {"lars_update": {
+        "ms": graph_ms(torch, lars_ops, iters=4),
+        "kernel_only_ms": graph_ms(torch, lars_kernel_only, iters=4),
+        "eager_ms": eager_ms(torch, lars_ops, iters=5),
+        "plain_ms": graph_ms(torch, lars_plain, iters=4),
+        "library_ms": None,
+        "bytes": 20 * lars_elems,
+        "flops": 6 * lars_elems,       # v' = mom*v + tl*(g + wd*p); p - v'
+        "at": f"all 54 ResNet-50 LARS leaves, {lars_elems} fp32 elements",
+    }}
+    print(f"time lars_update (one step, 54 leaves, {lars_elems} elements): "
+          f"{timing['lars_update']}")
+
+    xent_times = {}
+    for rows in (32, 64):
+        x = randn((rows, 1000), 4.0)
+        y = torch.randint(0, 1000, (rows,), generator=gen, device=dev)
+        gout = torch.full((rows,), 1.0 / rows, device=dev)
+        lse = ref.ls_xent_fwd_ref(x, y, SMOOTHING)[1]
+        xl = x.detach().requires_grad_(True)
+
+        def lib_fwd_bwd():
+            out = F.cross_entropy(xl, y, label_smoothing=SMOOTHING, reduction="none")
+            return torch.autograd.grad(out, xl, gout)
+
+        logits_bytes = rows * 1000 * 4
+        xent_times[rows] = {
+            "ls_xent_fwd": {
+                "ms": graph_ms(torch, lambda: ls_xent_fwd_cuda(x, y, SMOOTHING)),
+                "eager_ms": eager_ms(torch, lambda: ls_xent_fwd_cuda(x, y, SMOOTHING)),
+                "plain_ms": graph_ms(torch, lambda: ref.ls_xent_fwd_ref(x, y, SMOOTHING)),
+                "library_ms": graph_ms(torch, lambda: F.cross_entropy(
+                    x, y, label_smoothing=SMOOTHING, reduction="none")),
+                "bytes": logits_bytes + rows * (8 + 4 + 4),
+                "flops": 5 * rows * 1000,  # max, exp, rescale, two sums
+                "at": f"({rows}, 1000) fp32 logits",
+            },
+            "ls_xent_bwd": {
+                "ms": graph_ms(torch, lambda: ls_xent_bwd_cuda(x, y, lse, gout, SMOOTHING)),
+                "eager_ms": eager_ms(torch, lambda: ls_xent_bwd_cuda(
+                    x, y, lse, gout, SMOOTHING)),
+                "plain_ms": graph_ms(torch, lambda: ref.ls_xent_bwd_ref(
+                    x, y, lse, gout, SMOOTHING)),
+                # no single PyTorch call computes only this backward
+                "library_ms": None,
+                "library_fwd_bwd_ms": graph_ms(torch, lib_fwd_bwd),
+                "bytes": 2 * logits_bytes + rows * (8 + 4 + 4),
+                "flops": 5 * rows * 1000,  # sub, exp, two offsets, scale
+                "at": f"({rows}, 1000) fp32 logits",
+            },
+        }
+        for name, t in xent_times[rows].items():
+            print(f"time {name} ({rows}, 1000) fp32: {t}")
+
+    # -- the main path: full-width ResNet-50 over two batch stages ------------
+    data = SyntheticImageNet(num_classes=1000, image_size=224, seed=0, device=dev)
+
+    def data_fn(i, gb):
+        images, labels = data.batch(i, gb)
+        return augment.augment(generator(dev, 1, i), images, (224, 224)), labels
+
+    def loss_fn(params, batch):
+        images, labels = batch
+        logits = resnet.apply(model, images, params=params)
+        return (losses.label_smoothing_xent(logits, labels, SMOOTHING),
+                torch.zeros((), device=dev))
+
+    sched = BatchSchedule((BatchStage(0, 1, 32), BatchStage(1, 2, 64)))
+    plan = build_plan(sched, dataset_size=256, n_workers=1, max_steps=12)
+    print("plan: " + ", ".join(f"{s.num_steps} steps at {s.global_batch}"
+                               for s in plan.stages))
+    trainer = Trainer(loss_fn=loss_fn, cfg=TrainerConfig(schedule="B", log_every=1),
+                      plan=plan, data_fn=data_fn)
+    state = TrainState.create(dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    state, history = trainer.run(state)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    steps = len(history)
+    for r in history:
+        print(f"  step {r['step']:3d} gb {r['global_batch']:3d} loss {r['loss']:.5f} "
+              f"lr {r['lr']:.5f} momentum {r['momentum']:.4f} skipped {r['skipped']} "
+              f"grad_norm {r['grad_norm']:.4f} step_ms {1e3 * r['wall_s']:.2f}")
+    print(f"launches on the main path: {counts} over {steps} steps")
+    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if steps != plan.total_steps or state.step != plan.total_steps:
+        fail(f"ran {steps} steps, plan has {plan.total_steps}")
+    for row in history:
+        if not (row["loss"] == row["loss"] and abs(row["loss"]) < float("inf")):
+            fail(f"non-finite loss at step {row['step']}")
+        if row["skipped"]:
+            fail(f"step {row['step']} was skipped by the guard")
+    want = {"lars_update": 54 * steps, "ls_xent_fwd": steps, "ls_xent_bwd": steps}
+    if counts != want:
+        fail(f"launch counts {counts}, want {want}")
+    for s in plan.stages:
+        walls = [r["wall_s"] for r in history
+                 if s.first_step < r["step"] <= s.first_step + s.num_steps]
+        print(f"stage gb {s.global_batch}: step ms {[round(1e3 * w, 2) for w in walls]}, "
+              f"steady median (first step excluded) "
+              f"{1e3 * statistics.median(walls[1:]):.2f} ms")
+
+    # -- small input: the card's path against the host's ----------------------
+    tiny = resnet.ResNetConfig.tiny(compute_dtype=torch.float32)
+    tmodel = {d: resnet.init(tiny, seed=3, device=d) for d in ("cpu", "cuda")}
+    tmodel["cuda"].load_state_dict(tmodel["cpu"].state_dict())
+    tdata = SyntheticImageNet(num_classes=10, image_size=32, seed=2, device="cpu")
+    tplan = build_plan(BatchSchedule((BatchStage(0, 1, 8),)), dataset_size=16,
+                       n_workers=1)
+    finals, tlosses = {}, {}
+    for d, m in tmodel.items():
+        def tloss(params, batch, m=m):
+            return (losses.label_smoothing_xent(
+                resnet.apply(m, batch[0], params=params), batch[1], SMOOTHING),
+                torch.zeros((), device=batch[0].device))
+        tr = Trainer(loss_fn=tloss, cfg=TrainerConfig(log_every=1), plan=tplan,
+                     data_fn=lambda i, gb, d=d: tuple(t.to(d) for t in tdata.batch(i, gb)))
+        st, hist = tr.run(TrainState.create(dict(m.named_parameters())), log=lambda s: None)
+        finals[d], tlosses[d] = st.params, [h["loss"] for h in hist]
+    p_err = max((finals["cuda"][k].cpu() - v).abs().max().item()
+                for k, v in finals["cpu"].items())
+    l_err = max(abs(a - b) / max(abs(b), 1.0)
+                for a, b in zip(tlosses["cuda"], tlosses["cpu"]))
+    print(f"tiny resnet fp32, 2 steps, card vs host: loss rel err {l_err:.3e}, "
+          f"params max_abs_err {p_err:.3e} (tol {TINY_TOL:g})")
+    if not (l_err <= TINY_TOL and p_err <= TINY_TOL):
+        fail("tiny ResNet on the card disagrees with the host")
+
+    # -- report ---------------------------------------------------------------
+    sources = {
+        "lars_update": ("cuda", "src/repro_torch/csrc/lars_update.cu",
+                        "src/repro/kernels/lars_update.py:22", lars_err),
+        "ls_xent_fwd": ("cuda", "src/repro_torch/csrc/ls_xent.cu",
+                        "src/repro/kernels/ls_xent.py:27", fwd_err),
+        "ls_xent_bwd": ("cuda", "src/repro_torch/csrc/ls_xent.cu",
+                        "src/repro/kernels/ls_xent.py:27", bwd_err),
+    }
+    main_rows = plan.stages[-1].global_batch
+    measured = {"lars_update": timing["lars_update"], **xent_times[main_rows]}
+    kernels = []
+    for name, (route, src, replaces, err) in sources.items():
+        t = measured[name]
+        by_bytes = 1e3 * t["bytes"] / HBM_BYTES_PER_S
+        by_ops = 1e3 * t["flops"] / FP32_FLOPS_PER_S
+        kernels.append({
+            "name": name, "route": route, "source": src, "replaces": replaces,
+            "launches": counts[name], "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
+            **{k: t[k] for k in ("kernel_only_ms", "library_fwd_bwd_ms") if k in t},
+            "at": t["at"],
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,66 @@
+"""Carry weights between the JAX package's param trees and the port.
+
+A JAX tree is a nested dict/list of arrays (``repro/models/resnet.py:init``),
+passed here as numpy arrays. The port's params are ``{name: tensor}`` with
+module paths for names: ``stages.0.1.conv1.kernel`` for the JAX path
+``stages/0/1/conv1/kernel``. Conv kernels are HWIO in JAX and OIHW here;
+every other leaf (the dense ``(in, out)`` kernel included) keeps its shape.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_lib
+
+_HWIO_TO_OIHW = (3, 2, 0, 1)
+_OIHW_TO_HWIO = (2, 3, 1, 0)
+
+
+def _flatten(tree, prefix=""):
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        yield prefix, tree
+        return
+    for k, sub in items:
+        yield from _flatten(sub, f"{prefix}.{k}" if prefix else str(k))
+
+
+def params_from_jax(tree, device=None) -> dict[str, torch.Tensor]:
+    """JAX param tree (numpy leaves) -> the port's ``{name: tensor}``."""
+    dev = device_lib.resolve(device)
+    out = {}
+    for name, a in _flatten(tree):
+        a = np.asarray(a, dtype=np.float32)
+        if a.ndim == 4:
+            a = a.transpose(_HWIO_TO_OIHW)
+        out[name] = torch.tensor(a, device=dev)
+    return out
+
+
+def _listify(node):
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listify(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
+def params_to_jax(params: dict[str, torch.Tensor]):
+    """The port's ``{name: tensor}`` -> JAX-layout tree of numpy arrays."""
+    root: dict = {}
+    for name, t in params.items():
+        a = t.detach().float().cpu().numpy()
+        if a.ndim == 4:
+            a = a.transpose(_OIHW_TO_HWIO)
+        *path, leaf = name.split(".")
+        node = root
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return _listify(root)

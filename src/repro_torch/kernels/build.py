@@ -1,0 +1,117 @@
+"""Build the CUDA kernels in ``csrc/`` and load them with ``ctypes``.
+
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, for ``sm_90a`` (Hopper), and the objects are linked into one
+shared library with a plain C interface. The library lands in ``build/``
+at the root of the checkout, named by a hash of the sources and flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is.
+Nothing here runs at import time: the first kernel launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+# C signature of each exported function: (argtypes), restype is int
+# (a cudaError_t, 0 on success).
+SIGNATURES = {
+    "lars_update_f32": (_P, _P, _P, _P, _P, _P, ctypes.c_float,
+                        ctypes.c_float, ctypes.c_float, ctypes.c_longlong,
+                        ctypes.c_int, _P),
+    "ls_xent_fwd": (_P, ctypes.c_int, _P, _P, _P, ctypes.c_longlong,
+                    ctypes.c_int, ctypes.c_float, _P),
+    "ls_xent_bwd": (_P, ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong,
+                    ctypes.c_int, ctypes.c_float, _P),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_log = ""   # nvcc's output (ptxas register and spill counts) of the last build
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin")
+
+
+def _sources() -> list[Path]:
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources in {CSRC}")
+    return srcs
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"repro_torch_kernels-{h.hexdigest()[:16]}.so"
+
+
+def _build(out: Path) -> None:
+    global build_log
+    nvcc = _nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        procs = []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in procs:
+            text, _ = proc.communicate()
+            logs.append(" ".join(cmd) + "\n" + text)
+            if proc.returncode != 0:
+                failed.append(logs[-1])
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp_so = Path(tmp) / out.name
+        cmd = [nvcc, "-shared", "-o", str(tmp_so), *(str(o) for _, o, _ in procs)]
+        link = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout)
+        os.replace(tmp_so, out)   # atomic: a concurrent loader sees all or nothing
+    build_log = "\n".join(logs)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if it is missing."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not path.exists():
+                _build(path)
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a non-zero ``cudaError_t``."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

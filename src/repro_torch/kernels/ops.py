@@ -1,0 +1,56 @@
+"""Dispatch to the kernels by the device of the tensors they are given.
+
+A CPU tensor goes to the plain PyTorch version in ``kernels/ref.py``. A
+CUDA tensor goes to the CUDA kernel, or the call raises: there is no
+fallback. The first CUDA call builds the kernel library
+(``kernels/build.py``) from ``csrc/``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.lars_update import lars_update_cuda
+from repro_torch.kernels.ls_xent import LSXent, ls_xent_bwd_cuda, ls_xent_fwd_cuda
+
+_WRAPPERS = {"lars_update": lars_update_cuda, "ls_xent_fwd": ls_xent_fwd_cuda,
+             "ls_xent_bwd": ls_xent_bwd_cuda}
+
+
+def lars_update(p, g, v, *, lr, mom, eta, weight_decay, eps,
+                nesterov: bool = False):
+    """Fused LARS step for one fp32 leaf; returns ``(p', v')``.
+
+    The norms and the trust ratio are small reductions on the device
+    (``ref.lars_trust``); the elementwise update is the kernel.
+    """
+    if not p.is_cuda:
+        return ref.lars_update_ref(p, g, v, lr=lr, mom=mom, eta=eta,
+                                   weight_decay=weight_decay, eps=eps,
+                                   nesterov=nesterov)
+    trust = ref.lars_trust(p, g, eta=eta, weight_decay=weight_decay, eps=eps)
+    return lars_update_cuda(p, g, v, trust, lr=lr, mom=mom,
+                            weight_decay=weight_decay, nesterov=nesterov)
+
+
+def ls_xent(logits: torch.Tensor, labels: torch.Tensor, *,
+            smoothing: float) -> torch.Tensor:
+    """Per-row label-smoothed cross-entropy, differentiable in ``logits``.
+
+    logits: (..., V) fp32 or bf16; labels: (...) int32 or int64 -> (...) fp32.
+    """
+    batch_shape = logits.shape[:-1]
+    x = logits.reshape(-1, logits.shape[-1]).contiguous()
+    per = LSXent.apply(x, labels.reshape(-1), smoothing)
+    return per.reshape(batch_shape)
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each kernel since the last ``reset_launch_counts``."""
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _WRAPPERS.values():
+        fn.launches = 0

@@ -1,0 +1,72 @@
+"""Plain PyTorch versions of every kernel in ``csrc/``.
+
+CPU tensors go here (``kernels/ops.py``); on the card these are what each
+kernel is held against. They repeat the kernels' arithmetic in fp32 and are
+no yardstick of speed.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def lars_trust(p: torch.Tensor, g: torch.Tensor, *, eta: float,
+               weight_decay: float, eps: float) -> torch.Tensor:
+    """eta*||p|| / (||g|| + wd*||p|| + eps), or 1 when either norm is 0.
+
+    A 0-d fp32 tensor on ``p``'s device: the value never visits the host.
+    """
+    w_norm = torch.linalg.vector_norm(p.float())
+    g_norm = torch.linalg.vector_norm(g.float())
+    trust = eta * w_norm / (g_norm + weight_decay * w_norm + eps)
+    return torch.where((w_norm > 0) & (g_norm > 0), trust,
+                       torch.ones_like(trust))
+
+
+def lars_update_ref(p, g, v, *, lr, mom, eta, weight_decay, eps,
+                    nesterov: bool = False):
+    """Fused LARS update, fp32 (``repro/kernels/ref.py::lars_update_ref``,
+    plus the nesterov branch of ``core/lars.py::update``).
+
+    trust = eta*||p|| / (||g|| + wd*||p|| + eps)  (1.0 when either norm is 0)
+    v'    = mom*v + trust*lr*(g + wd*p)
+    p'    = p - v'   (nesterov: p - (mom*v' + v' - mom*v))
+    """
+    trust = lars_trust(p, g, eta=eta, weight_decay=weight_decay, eps=eps)
+    p, g, v = p.float(), g.float(), v.float()
+    v_new = mom * v + (trust * lr) * (g + weight_decay * p)
+    step = mom * v_new + (v_new - mom * v) if nesterov else v_new
+    return p - step, v_new
+
+
+def ls_xent_fwd_ref(logits: torch.Tensor, labels: torch.Tensor,
+                    smoothing: float):
+    """The forward kernel's outputs: per-row (loss, lse), fp32.
+
+    loss = (1-a)*(lse - x_y) - a*(mean(x) - lse): the smoothed NLL.
+    """
+    x = logits.float()
+    lse = torch.logsumexp(x, dim=-1)
+    x_y = torch.gather(x, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    loss = (1.0 - smoothing) * (lse - x_y) - smoothing * (x.mean(dim=-1) - lse)
+    return loss, lse
+
+
+def ls_xent_ref(logits: torch.Tensor, labels: torch.Tensor,
+                smoothing: float) -> torch.Tensor:
+    """Per-row label-smoothed NLL, fp32 (``repro/kernels/ref.py::ls_xent_ref``)."""
+    return ls_xent_fwd_ref(logits, labels, smoothing)[0]
+
+
+def ls_xent_bwd_ref(logits: torch.Tensor, labels: torch.Tensor,
+                    lse: torch.Tensor, gout: torch.Tensor,
+                    smoothing: float) -> torch.Tensor:
+    """dlogits = gout * (softmax - (1-a)*onehot(y) - a/V), in logits' dtype."""
+    x = logits.float()
+    vocab = x.shape[-1]
+    p = torch.exp(x - lse.unsqueeze(-1))
+    cols = torch.arange(vocab, device=x.device)
+    hit = (cols == labels.long().unsqueeze(-1)).to(x.dtype)
+    d = gout.float().unsqueeze(-1) * (p - smoothing / vocab
+                                      - (1.0 - smoothing) * hit)
+    return d.to(logits.dtype)

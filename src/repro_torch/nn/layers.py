@@ -1,0 +1,142 @@
+"""Layers of the ResNet main path: plain functions on tensors, and the small
+modules that hold their parameters under the JAX package's names
+(``kernel``, ``bias``, ``bn_scale``, ``bn_bias``).
+
+Layout: the functions take NCHW activations (the permuted NHWC input keeps
+channels-last strides, which cuDNN prefers) and OIHW conv kernels;
+``repro_torch.convert`` maps the JAX package's HWIO kernels.
+
+Mixed precision follows ``repro/nn/layers.py``: parameters are fp32
+masters, cast to the activations' dtype at apply time -- the BN scale and
+bias included, so BN computes in fp32 with bf16-rounded affine values, as
+the JAX model does.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.nn import init as winit
+
+
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Compute-dtype view of an fp32 master tensor (others pass through)."""
+    return t.to(dtype) if t.dtype == torch.float32 else t
+
+
+def same_pads(size: int, window: int, stride: int) -> tuple[int, int]:
+    """XLA "SAME" padding (lo, hi) of one spatial dim.
+
+    At stride 2 the total is odd for even sizes and the extra pad goes
+    last (bottom/right); torch's symmetric ``padding=`` cannot express it.
+    """
+    out = -(-size // stride)
+    total = max((out - 1) * stride + window - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pad_same(x: torch.Tensor, kh: int, kw: int, stride: int, value=0.0):
+    """(x padded where asymmetric, symmetric padding left for the op)."""
+    ph = same_pads(x.shape[2], kh, stride)
+    pw = same_pads(x.shape[3], kw, stride)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return x, (ph[0], pw[0])
+    return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), (0, 0)
+
+
+def conv(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """NCHW conv with OIHW ``kernel`` and XLA "SAME" padding."""
+    x, pad = _pad_same(x, kernel.shape[2], kernel.shape[3], stride)
+    return F.conv2d(x, kernel.to(x.dtype), stride=stride, padding=pad)
+
+
+def dense(x: torch.Tensor, kernel: torch.Tensor,
+          bias: torch.Tensor | None = None) -> torch.Tensor:
+    """x @ kernel (+ bias); ``kernel`` is (in, out) as in the JAX package."""
+    y = x @ kernel.to(x.dtype)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+def batchnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+              stats=None, eps: float = 1e-5, return_stats: bool = False):
+    """BN "without moving average" (paper §3.2 / Akiba et al. [5]), channel
+    dim 1.
+
+    Train: batch mean and variance in fp32, the variance as E[x^2] - mean^2
+    (the form whose two moments the data-parallel version averages across
+    ranks). Eval: ``stats`` = (mean, var) from a calibration pass.
+    """
+    axes = [d for d in range(x.dim()) if d != 1]
+    xf = x.float()
+    if stats is not None:
+        mean, var = stats
+    else:
+        mean = xf.mean(axes)
+        sq = (xf * xf).mean(axes)
+        var = sq - mean * mean
+    shape = [1] * x.dim()
+    shape[1] = -1
+    inv = torch.rsqrt(var + eps) * scale.float()
+    y = (xf - mean.view(shape)) * inv.view(shape) + bias.float().view(shape)
+    y = y.to(x.dtype)
+    return (y, (mean, var)) if return_stats else y
+
+
+def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2) -> torch.Tensor:
+    """NCHW max pool with XLA "SAME" padding (pads with -inf)."""
+    x, pad = _pad_same(x, window, window, stride, value=float("-inf"))
+    return F.max_pool2d(x, window, stride, padding=pad)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    return x.mean(dim=(2, 3))
+
+
+# ----------------------------------------------------------------- modules --
+
+class Conv(nn.Module):
+    """Holds ``kernel`` (cout, cin, kh, kw), He fan-in init."""
+
+    def __init__(self, generator: torch.Generator, kh: int, kw: int,
+                 cin: int, cout: int, stride: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.kernel = nn.Parameter(
+            winit.he_normal(generator, (cout, cin, kh, kw), fan_in=kh * kw * cin))
+
+    def forward(self, x):
+        return conv(x, self.kernel, self.stride)
+
+
+class BatchNorm(nn.Module):
+    """Holds ``bn_scale`` (zero-init where ``zero_gamma``) and ``bn_bias``."""
+
+    def __init__(self, dim: int, *, device, zero_gamma: bool = False):
+        super().__init__()
+        fill = torch.zeros if zero_gamma else torch.ones
+        self.bn_scale = nn.Parameter(fill(dim, dtype=torch.float32, device=device))
+        self.bn_bias = nn.Parameter(torch.zeros(dim, dtype=torch.float32,
+                                                device=device))
+
+    def forward(self, x, stats=None, return_stats=False):
+        return batchnorm(x, cast(self.bn_scale, x.dtype),
+                         cast(self.bn_bias, x.dtype), stats=stats,
+                         return_stats=return_stats)
+
+
+class Dense(nn.Module):
+    """Holds ``kernel`` (in, out), He fan-in init, and a zero ``bias``."""
+
+    def __init__(self, generator: torch.Generator, in_dim: int, out_dim: int):
+        super().__init__()
+        self.kernel = nn.Parameter(
+            winit.he_normal(generator, (in_dim, out_dim), fan_in=in_dim))
+        self.bias = nn.Parameter(torch.zeros(out_dim, dtype=torch.float32,
+                                             device=generator.device))
+
+    def forward(self, x):
+        return dense(x, self.kernel, self.bias)

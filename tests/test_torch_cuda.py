@@ -1,0 +1,129 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here takes the ``cuda`` fixture, which skips without an NVIDIA
+GPU (the kernels have no CPU mode). The file imports nothing of JAX, so it
+runs on a machine that has none:
+
+    PYTHONPATH=src python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import pytest
+import torch
+
+from repro_torch.core import losses
+from repro_torch.core.batch_control import build_plan
+from repro_torch.core.schedules import BatchSchedule, BatchStage
+from repro_torch.data.synthetic import SyntheticImageNet
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.lars_update import lars_update_cuda
+from repro_torch.kernels.ls_xent import ls_xent_bwd_cuda, ls_xent_fwd_cuda
+from repro_torch.models import resnet
+from repro_torch.train.state import TrainState
+from repro_torch.train.trainer import Trainer, TrainerConfig
+
+pytestmark = pytest.mark.cuda
+
+LARS_KW = dict(lr=0.5, mom=0.9, eta=0.01, weight_decay=5e-5, eps=1e-6)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    # fp32 comparisons on the card run in full fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _gen(dev, seed):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+@pytest.mark.parametrize("shape", [(7,), (300, 129), (64, 64, 3, 3), (2048, 1000)])
+@pytest.mark.parametrize("nesterov", [False, True])
+def test_lars_kernel_matches_plain(cuda, shape, nesterov):
+    g_ = _gen(cuda, 0)
+    p, g, v = (s * torch.randn(shape, generator=g_, device=cuda) for s in (1.0, 0.1, 0.01))
+    before = lars_update_cuda.launches
+    got = ops.lars_update(p, g, v, **LARS_KW, nesterov=nesterov)
+    want = ref.lars_update_ref(p, g, v, **LARS_KW, nesterov=nesterov)
+    torch.cuda.synchronize()
+    assert lars_update_cuda.launches == before + 1
+    # fp32 both ways; the kernel contracts multiply-adds
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("rows,vocab", [(32, 1000), (5, 2049), (256, 32768), (3, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ls_xent_kernels_match_plain(cuda, rows, vocab, dtype):
+    g_ = _gen(cuda, 1)
+    x = (4 * torch.randn(rows, vocab, generator=g_, device=cuda)).to(dtype)
+    y = torch.randint(0, vocab, (rows,), generator=g_, device=cuda)
+    gout = torch.rand(rows, generator=g_, device=cuda)
+    loss, lse = ls_xent_fwd_cuda(x, y, 0.1)
+    loss_r, lse_r = ref.ls_xent_fwd_ref(x, y, 0.1)
+    # fp32 sums over the row in another order
+    torch.testing.assert_close(loss, loss_r, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(lse, lse_r, rtol=1e-5, atol=1e-4)
+    d = ls_xent_bwd_cuda(x, y, lse_r, gout, 0.1).float()
+    d_r = ref.ls_xent_bwd_ref(x, y, lse_r, gout, 0.1).float()
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5   # one bf16 rounding
+    torch.testing.assert_close(d, d_r, rtol=rtol, atol=1e-6)
+
+
+def test_ls_xent_autograd_on_the_card_matches_the_host(cuda):
+    g_ = _gen(torch.device("cpu"), 2)
+    x = 3 * torch.randn(2, 6, 1000, generator=g_)
+    y = torch.randint(0, 1000, (2, 6), generator=g_)
+    grads = []
+    for dev in ("cpu", cuda):
+        xd = x.to(dev, copy=True).requires_grad_(True)
+        loss = losses.label_smoothing_xent(xd, y.to(dev), 0.1)
+        loss.backward()
+        grads.append((loss.detach().cpu(), xd.grad.cpu()))
+    torch.testing.assert_close(grads[1][0], grads[0][0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(grads[1][1], grads[0][1], rtol=1e-5, atol=1e-7)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.randn(4, 10, device=cuda)
+    y = torch.tensor([1, 2, 3, 4], device=cuda)
+    with pytest.raises(TypeError):
+        ls_xent_fwd_cuda(x.half(), y, 0.1)
+    with pytest.raises(ValueError):      # (4, 10), not contiguous
+        ls_xent_fwd_cuda(torch.randn(10, 4, device=cuda).t(), y, 0.1)
+    with pytest.raises(ValueError):
+        ls_xent_fwd_cuda(x, y.cpu(), 0.1)
+    with pytest.raises(TypeError):
+        lars_update_cuda(x.double(), x.double(), x.double(),
+                         torch.ones(1, device=cuda), lr=1.0, mom=0.9, weight_decay=0.0)
+
+
+def test_tiny_resnet_trains_the_same_on_the_card_and_the_host(cuda):
+    cfg = resnet.ResNetConfig.tiny(compute_dtype=torch.float32)
+    models = {d: resnet.init(cfg, seed=3, device=d) for d in ("cpu", "cuda")}
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    data = SyntheticImageNet(num_classes=10, image_size=32, seed=2, device="cpu")
+    plan = build_plan(BatchSchedule((BatchStage(0, 1, 8),)), dataset_size=24,
+                      n_workers=1)
+    ops.reset_launch_counts()
+    out = {}
+    for d, m in models.items():
+        def loss_fn(params, batch, m=m):
+            logits = resnet.apply(m, batch[0], params=params)
+            return losses.label_smoothing_xent(logits, batch[1], 0.1), torch.zeros(())
+        trainer = Trainer(loss_fn, TrainerConfig(log_every=1), plan,
+                          lambda i, gb, d=d: tuple(t.to(d) for t in data.batch(i, gb)))
+        state, hist = trainer.run(TrainState.create(dict(m.named_parameters())),
+                                  log=lambda s: None)
+        out[d] = (state, [h["loss"] for h in hist])
+    n_lars = sum(1 for n in out["cpu"][0].params if "kernel" in n)
+    assert ops.launch_counts() == {"lars_update": 3 * n_lars, "ls_xent_fwd": 3,
+                                   "ls_xent_bwd": 3}
+    # cuDNN and the host sum convolutions in different orders
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert abs(a - b) <= 1e-4 * max(1.0, abs(b))
+    for k, p in out["cpu"][0].params.items():
+        torch.testing.assert_close(out["cuda"][0].params[k].cpu(), p, rtol=1e-4, atol=1e-4)
