@@ -13,9 +13,16 @@
 5. trains full-width ResNet-50 at 224 px through ``Trainer.run`` over a
    two-stage batch-size plan (32 then 64 images a step), and fails on a
    non-finite loss, a skipped step or a kernel the run did not launch;
-6. runs a tiny ResNet two steps on the card and on the CPU from the same
-   weights and batches, and fails if they disagree;
-7. prints one ``{"kernels": [...]}`` line, the card line again, and as the
+6. serves full-width Qwen3-1.7B (random weights from seed 0) through
+   ``RequestBatcher`` and ``generate`` at the serve shape of
+   ``repro_torch.launch.profile_serve``: 8 prompts of 512-2048 tokens,
+   left-padded to 2048, 32 new tokens each, greedy; fails on a non-finite
+   logit, on a prefill that does not launch the flash kernel once a layer
+   (28) or on a decode step that launches it at all;
+7. runs a tiny ResNet two steps, and the Qwen3 and Gemma2 smoke configs
+   through ``generate``, on the card and on the CPU from the same weights
+   and inputs, and fails if they disagree;
+8. prints one ``{"kernels": [...]}`` line, the card line again, and as the
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is absent or the port is not
@@ -34,6 +41,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 SMOOTHING = 0.1
 LARS_KW = dict(lr=2.0, mom=0.9, eta=0.01, weight_decay=5e-5, eps=1e-6)
 # kernel vs plain version on the same inputs; both compute in fp32, so the
@@ -45,6 +53,13 @@ XENT_BWD_TOL = {"float32": (1e-6, 1e-5),
 # tiny ResNet, fp32, card vs host: cuDNN and the CPU sum convolutions in
 # different orders, and two LARS steps carry that difference forward
 TINY_TOL = 1e-3
+# flash kernel vs its plain version on the same inputs: both compute in fp32
+# (sum order differs); bf16 output adds one rounding that may fall either
+# way (one bf16 step, 2^-7 relative)
+FLASH_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2.0 ** -7)}   # (atol, rtol)
+# smoke transformers, fp32 compute, card vs host: matmuls and the attention
+# sum in different orders; two layers keep that near fp32 noise
+SMOKE_LOGIT_TOL = 1e-4           # abs and relative, on prefill logits
 
 
 def gpu_line() -> str:
@@ -99,6 +114,215 @@ def eager_ms(torch, fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def check_flash(torch, dev, gen) -> float:
+    """Flash kernel against its plain version at the serve path's shapes and
+    the kernel's other features; returns the max abs error."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+
+    cases = [  # (B, S, Skv, H, Hkv, D, dtype, causal, window, softcap)
+        (8, 2048, 2048, 16, 8, 128, torch.bfloat16, True, None, None),  # Qwen3 prefill
+        (2, 1024, 1024, 8, 4, 64, torch.bfloat16, True, None, None),
+        (2, 1024, 1024, 8, 4, 256, torch.bfloat16, True, None, None),
+        (2, 1024, 1024, 16, 8, 128, torch.bfloat16, True, 256, 50.0),
+        (2, 1000, 1000, 16, 8, 128, torch.bfloat16, True, None, None),
+        (2, 1000, 1000, 16, 8, 128, torch.bfloat16, False, None, None),
+        (2, 1024, 1024, 16, 8, 128, torch.float32, True, None, None),
+        (2, 1000, 1000, 16, 8, 128, torch.float32, False, 300, 30.0),
+        (4, 48, 48, 4, 2, 32, torch.float32, True, 16, 50.0),            # smoke configs
+    ]
+    worst = 0.0
+    for b, sq, skv, h, hkv, d, dtype, causal, window, softcap in cases:
+        q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, skv, hkv, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, skv, hkv, d, generator=gen, device=dev).to(dtype)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        before = flash_attention_cuda.launches
+        got = ops.flash_attention(q, k, v, **kw).float()
+        want = ref.flash_attention_ref(q, k, v, **kw).float()
+        torch.cuda.synchronize()
+        if flash_attention_cuda.launches != before + 1:
+            fail("ops.flash_attention did not launch the kernel on the card")
+        err = (got - want).abs()
+        atol, rtol = FLASH_TOL[str(dtype).split(".")[-1]]
+        e = err.max().item()
+        worst = max(worst, e)
+        print(f"check flash_attn B{b} S{sq} Skv{skv} H{h}/{hkv} D{d} {str(dtype)[6:]} "
+              f"causal={causal} window={window} softcap={softcap}: max_abs_err {e:.3e}")
+        if not bool((err <= atol + rtol * want.abs()).all()):
+            fail(f"flash_attn disagrees with flash_attention_ref at B{b} S{sq} D{d}")
+        del q, k, v, got, want, err
+    print(f"check flash_attn: max_abs_err {worst:.3e} (tol fp32 1e-5 + 1e-5|ref|, "
+          f"bf16 1e-5 + 2^-7|ref|)")
+    return worst
+
+
+def time_flash(torch, dev, gen) -> dict:
+    """The flash kernel at the Qwen3-1.7B prefill shape, beside its plain
+    version, SDPA and its bound (bf16 inputs: the bf16 tensor-core rate)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+    from repro_torch.launch.profile_serve import BATCH, SEQ
+
+    b, s, h, hkv, d = BATCH, SEQ, 16, 8, 128
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    pairs = b * h * s * (s + 1) // 2     # (query, key) pairs the causal mask keeps
+    t = {
+        "ms": graph_ms(torch, lambda: flash_attention_cuda(q, k, v), iters=10, replays=3),
+        "eager_ms": eager_ms(torch, lambda: ops.flash_attention(q, k, v), iters=10),
+        "plain_ms": eager_ms(torch, lambda: ref.flash_attention_ref(q, k, v), iters=3),
+        # the same function in one PyTorch call, on (B, H, S, D) copies made
+        # beforehand; timed as a yardstick, used nowhere in the port
+        "library_ms": graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=10, replays=3),
+        "bytes": 2 * (2 * q.numel() + 2 * k.numel()),     # q, k, v read, o written
+        "flops": 4 * d * pairs,                           # q.k and p.v, 2 flops a MAC
+        "flops_per_s": BF16_FLOPS_PER_S,
+        "rate": "bf16 tensor cores 989 TFLOP/s, HBM 3.35 TB/s",
+        "at": f"B{b} S{s} H{h} Hkv{hkv} D{d} bf16 causal (Qwen3-1.7B prefill)",
+    }
+    print(f"time flash_attn ({t['at']}): {t}")
+    return t
+
+
+def serve_qwen3(torch, dev) -> dict:
+    """The serve path at full width: RequestBatcher + generate, then the
+    same work split into prefill and decode steps to time each."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_serve import NEW, PROMPT_LENS, SEQ
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import decode
+
+    cfg = registry.get("qwen3-1.7b")
+    t0 = time.perf_counter()
+    model = T.init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"qwen3-1.7b: {n_params} parameters ({cfg.num_params()} without norms), "
+          f"init {time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab, n).tolist() for n in PROMPT_LENS]
+    batcher = decode.RequestBatcher(batch_size=len(prompts), seq_len=SEQ)
+    toks, lens, n_real = batcher.pack(prompts, device=dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = decode.generate(model, toks, cfg, max_new_tokens=NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    results = batcher.unpack(out, n_real)
+    print(f"serve: generate {n_real} x {NEW} tokens in {1e3 * gen_s:.2f} ms "
+          f"({n_real * NEW / gen_s:.1f} generated tokens/s), launches {counts}, "
+          f"peak device memory {peak / 2**30:.2f} GiB")
+    want = {"lars_update": 0, "ls_xent_fwd": 0, "ls_xent_bwd": 0, "flash_attn": cfg.n_layers}
+    if counts != want:
+        fail(f"generate launched {counts}, want {want}")
+    if len(results) != len(prompts) or any(len(r) != NEW for r in results):
+        fail("generate returned the wrong shape")
+    if not all(0 <= x < cfg.vocab for r in results for x in r):
+        fail("generate returned a token outside the vocab")
+
+    # the same work, phase by phase, as generate runs it
+    with torch.inference_mode():
+        params = T.compute_params(model, cfg.compute_dtype)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(params, toks, cfg, cache_len=SEQ + NEW)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        prefill_counts = ops.launch_counts()
+        finite = torch.isfinite(logits).all()
+        step = decode.make_serve_step(cfg)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        toks_out = [tok]
+        ops.reset_launch_counts()
+        step_ms = []
+        for t in range(1, NEW):
+            t0 = time.perf_counter()
+            tok, logits, cache = step(params, tok, cache, SEQ + t - 1)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            finite &= torch.isfinite(logits).all()
+            toks_out.append(tok)
+        decode_counts = ops.launch_counts()
+    print(f"serve: prefill {len(prompts)} x {SEQ} tokens {prefill_ms:.2f} ms, "
+          f"flash launches {prefill_counts['flash_attn']}; decode step ms median "
+          f"{statistics.median(step_ms):.3f} (first {step_ms[0]:.3f}, max "
+          f"{max(step_ms):.3f}) over {len(step_ms)} steps, flash launches "
+          f"{decode_counts['flash_attn']}")
+    if prefill_counts["flash_attn"] != cfg.n_layers:
+        fail(f"prefill launched flash_attn {prefill_counts['flash_attn']} times, "
+             f"want {cfg.n_layers}")
+    if any(decode_counts.values()):
+        fail(f"decode launched {decode_counts}, want no kernel")
+    if not bool(finite):
+        fail("non-finite logits in prefill or decode")
+    if not torch.equal(torch.cat(toks_out, dim=1), out):
+        fail("prefill + serve steps and generate picked different tokens")
+    return {"counts": counts, "generate_ms": 1e3 * gen_s, "prefill_ms": prefill_ms,
+            "decode_ms": statistics.median(step_ms),
+            "tokens_per_s": n_real * NEW / gen_s, "peak_gib": peak / 2**30}
+
+
+def smoke_card_vs_host(torch) -> None:
+    """Qwen3 and Gemma2 smoke configs, fp32 compute, the same weights and
+    prompts on the card and on the host: tokens equal, logits close."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import decode
+
+    for arch in ("qwen3-1.7b", "gemma2-27b"):
+        cfg = dataclasses.replace(registry.get_smoke(arch), compute_dtype=torch.float32)
+        host = T.init(cfg, seed=1, device="cpu")
+        g = torch.Generator().manual_seed(2)
+        with torch.no_grad():      # non-zero norm scales, so every norm shows
+            for name, p in host.named_parameters():
+                if "norm_scale" in name:
+                    p.normal_(0.0, 0.3, generator=g)
+        card = T.init(cfg, seed=1, device="cuda")
+        card.load_state_dict(host.state_dict())
+        rng = np.random.RandomState(3)
+        prompts = [rng.randint(1, cfg.vocab, n).tolist() for n in (48, 40, 29, 17)]
+        batcher = decode.RequestBatcher(batch_size=4, seq_len=48)
+        got = {}
+        for dev, model in (("cpu", host), ("cuda", card)):
+            toks, _, n = batcher.pack(prompts, device=dev)
+            ops.reset_launch_counts()
+            with torch.inference_mode():
+                logits, _ = T.prefill(model, toks, cfg, cache_len=56)
+            launches = ops.launch_counts()["flash_attn"]
+            out = decode.generate(model, toks, cfg, max_new_tokens=8)
+            got[dev] = (logits.cpu(), batcher.unpack(out.cpu(), n), launches)
+        err = (got["cuda"][0] - got["cpu"][0]).abs()
+        ok = bool((err <= SMOKE_LOGIT_TOL * (1 + got["cpu"][0].abs())).all())
+        print(f"{arch} smoke fp32, card vs host: prefill logits max_abs_err "
+              f"{err.max().item():.3e} (tol {SMOKE_LOGIT_TOL:g} (1 + |host|)), tokens "
+              f"{'equal' if got['cuda'][1] == got['cpu'][1] else 'DIFFER'}, flash "
+              f"launches card {got['cuda'][2]} host {got['cpu'][2]}")
+        if not ok or got["cuda"][1] != got["cpu"][1]:
+            fail(f"{arch} smoke: the card disagrees with the host")
+        if got["cuda"][2] != cfg.n_layers or got["cpu"][2] != 0:
+            fail(f"{arch} smoke: flash launches card {got['cuda'][2]}, host {got['cpu'][2]}")
 
 
 def main() -> int:
@@ -203,6 +427,8 @@ def main() -> int:
           f"+ {XENT_FWD_TOL[1]:g}|ref|), bwd max_abs_err {bwd_err:.3e} "
           f"(tol fp32 1e-6 + 1e-5|ref|, bf16 1e-6 + 2^-7|ref|)")
 
+    flash_err = check_flash(torch, dev, gen)
+
     # -- timing at the main path's shapes ------------------------------------
     leaves = [(randn(s, 0.05), randn(s, 0.01), randn(s, 1e-3)) for s in lars_shapes]
     trusts = [ref.lars_trust(p, g, eta=0.01, weight_decay=5e-5, eps=1e-6)
@@ -276,6 +502,8 @@ def main() -> int:
         for name, t in xent_times[rows].items():
             print(f"time {name} ({rows}, 1000) fp32: {t}")
 
+    flash_time = time_flash(torch, dev, gen)
+
     # -- the main path: full-width ResNet-50 over two batch stages ------------
     data = SyntheticImageNet(num_classes=1000, image_size=224, seed=0, device=dev)
 
@@ -316,7 +544,8 @@ def main() -> int:
             fail(f"non-finite loss at step {row['step']}")
         if row["skipped"]:
             fail(f"step {row['step']} was skipped by the guard")
-    want = {"lars_update": 54 * steps, "ls_xent_fwd": steps, "ls_xent_bwd": steps}
+    want = {"lars_update": 54 * steps, "ls_xent_fwd": steps, "ls_xent_bwd": steps,
+            "flash_attn": 0}
     if counts != want:
         fail(f"launch counts {counts}, want {want}")
     for s in plan.stages:
@@ -325,6 +554,9 @@ def main() -> int:
         print(f"stage gb {s.global_batch}: step ms {[round(1e3 * w, 2) for w in walls]}, "
               f"steady median (first step excluded) "
               f"{1e3 * statistics.median(walls[1:]):.2f} ms")
+
+    # -- the serve path: full-width Qwen3-1.7B --------------------------------
+    serve = serve_qwen3(torch, dev)
 
     # -- small input: the card's path against the host's ----------------------
     tiny = resnet.ResNetConfig.tiny(compute_dtype=torch.float32)
@@ -351,6 +583,7 @@ def main() -> int:
           f"params max_abs_err {p_err:.3e} (tol {TINY_TOL:g})")
     if not (l_err <= TINY_TOL and p_err <= TINY_TOL):
         fail("tiny ResNet on the card disagrees with the host")
+    smoke_card_vs_host(torch)
 
     # -- report ---------------------------------------------------------------
     sources = {
@@ -360,24 +593,31 @@ def main() -> int:
                         "src/repro/kernels/ls_xent.py:27", fwd_err),
         "ls_xent_bwd": ("cuda", "src/repro_torch/csrc/ls_xent.cu",
                         "src/repro/kernels/ls_xent.py:27", bwd_err),
+        "flash_attn": ("cuda", "src/repro_torch/csrc/flash_attn.cu",
+                       "src/repro/kernels/flash_attn.py:34", flash_err),
     }
     main_rows = plan.stages[-1].global_batch
-    measured = {"lars_update": timing["lars_update"], **xent_times[main_rows]}
+    measured = {"lars_update": timing["lars_update"], **xent_times[main_rows],
+                "flash_attn": flash_time}
+    # each kernel's launches on its own main path: ResNet training, or serving
+    launches = {**counts, "flash_attn": serve["counts"]["flash_attn"]}
     kernels = []
     for name, (route, src, replaces, err) in sources.items():
         t = measured[name]
         by_bytes = 1e3 * t["bytes"] / HBM_BYTES_PER_S
-        by_ops = 1e3 * t["flops"] / FP32_FLOPS_PER_S
+        by_ops = 1e3 * t["flops"] / t.get("flops_per_s", FP32_FLOPS_PER_S)
         kernels.append({
             "name": name, "route": route, "source": src, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": err,
+            "launches": launches[name], "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
             **{k: t[k] for k in ("kernel_only_ms", "library_fwd_bwd_ms") if k in t},
+            "rate": t.get("rate", "fp32 67 TFLOP/s, HBM 3.35 TB/s"),
             "at": t["at"],
         })
+    print(json.dumps({"serve": {k: v for k, v in serve.items() if k != "counts"}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,13 @@ passed here as numpy arrays. The port's params are ``{name: tensor}`` with
 module paths for names: ``stages.0.1.conv1.kernel`` for the JAX path
 ``stages/0/1/conv1/kernel``. Conv kernels are HWIO in JAX and OIHW here;
 every other leaf (the dense ``(in, out)`` kernel included) keeps its shape.
+
+A JAX transformer tree (``repro/models/transformer.py:init``) holds its
+first ``n_prefix`` layers in ``prefix`` and the rest in ``blocks``: one
+layer tree per pattern position whose leaves are stacked over ``n_blocks``.
+``transformer_from_jax`` unstacks them into the port's ``layers.<i>``, with
+layer ``i = n_prefix + b * len(pattern) + j`` from block ``b``, position
+``j``. Dense kernels stay (in, out): the port computes ``x @ W`` as JAX does.
 """
 
 from __future__ import annotations
@@ -40,6 +47,34 @@ def params_from_jax(tree, device=None) -> dict[str, torch.Tensor]:
             a = a.transpose(_HWIO_TO_OIHW)
         out[name] = torch.tensor(a, device=dev)
     return out
+
+
+def layers_from_jax(tree, cfg) -> list:
+    """The per-layer subtrees of a JAX transformer tree (params or cache) in
+    ``cfg.kinds()`` order: ``prefix`` as it is, then ``blocks`` unstacked."""
+    layers = list(tree.get("prefix", []))
+    for b in range(cfg.n_blocks):
+        for j in range(len(cfg.pattern)):
+            layers.append(_index(tree["blocks"][j], b))
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"tree holds {len(layers)} layers, {cfg.name} has {cfg.n_layers}")
+    return layers
+
+
+def _index(tree, b):
+    if isinstance(tree, dict):
+        return {k: _index(v, b) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_index(v, b) for v in tree]
+    return np.asarray(tree)[b]
+
+
+def transformer_from_jax(tree, cfg, device=None) -> dict[str, torch.Tensor]:
+    """JAX transformer param tree (numpy leaves) -> the port's state dict."""
+    cfg.check_ported()
+    flat = {k: v for k, v in tree.items() if k not in ("prefix", "blocks")}
+    flat["layers"] = layers_from_jax(tree, cfg)
+    return params_from_jax(flat, device)
 
 
 def _listify(node):

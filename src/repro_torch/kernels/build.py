@@ -35,6 +35,10 @@ SIGNATURES = {
                     ctypes.c_int, ctypes.c_float, _P),
     "ls_xent_bwd": (_P, ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong,
                     ctypes.c_int, ctypes.c_float, _P),
+    "flash_attn_fwd": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_float, _P),
 }
 
 _lock = threading.Lock()

@@ -11,11 +11,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attn import check_every_row_attends, flash_attention_cuda
 from repro_torch.kernels.lars_update import lars_update_cuda
 from repro_torch.kernels.ls_xent import LSXent, ls_xent_bwd_cuda, ls_xent_fwd_cuda
 
 _WRAPPERS = {"lars_update": lars_update_cuda, "ls_xent_fwd": ls_xent_fwd_cuda,
-             "ls_xent_bwd": ls_xent_bwd_cuda}
+             "ls_xent_bwd": ls_xent_bwd_cuda, "flash_attn": flash_attention_cuda}
 
 
 def lars_update(p, g, v, *, lr, mom, eta, weight_decay, eps,
@@ -44,6 +45,27 @@ def ls_xent(logits: torch.Tensor, labels: torch.Tensor, *,
     x = logits.reshape(-1, logits.shape[-1]).contiguous()
     per = LSXent.apply(x, labels.reshape(-1), smoothing)
     return per.reshape(batch_shape)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """Attention forward with an online softmax (prefill self-attention).
+
+    q: (B, S, H, D); k/v: (B, Skv, Hkv, D), H % Hkv == 0 (GQA). Masks,
+    softcap and scale as ``repro/kernels/flash_attn.py::flash_attention``.
+    Raises on both devices when a query row has no key to attend
+    (``check_every_row_attends``), and on the card when autograd tracks an
+    input (the kernel has no backward).
+    """
+    if not q.is_cuda:
+        check_every_row_attends(q.shape[1], k.shape[1], window)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, scale=scale)
+    return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                causal=causal, window=window, softcap=softcap,
+                                scale=scale)
 
 
 def launch_counts() -> dict[str, int]:

@@ -70,3 +70,38 @@ def ls_xent_bwd_ref(logits: torch.Tensor, labels: torch.Tensor,
     d = gout.float().unsqueeze(-1) * (p - smoothing / vocab
                                       - (1.0 - smoothing) * hit)
     return d.to(logits.dtype)
+
+
+NEG_INF = -1e30   # the masked logit of repro/kernels/{ref,flash_attn}.py
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        softcap: float | None = None,
+                        scale: float | None = None) -> torch.Tensor:
+    """Plain masked softmax attention (``repro/kernels/ref.py::flash_attention_ref``).
+
+    q: (B, S, H, D); k/v: (B, Skv, Hkv, D), GQA by repeating each kv head
+    for its H // Hkv query heads. fp32 math, output in q's dtype. Query i
+    attends key j iff j < Skv, j <= i (causal) and j > i - window (window);
+    positions count from 0 in both, as in the kernel.
+    """
+    B, S, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    scale = D ** -0.5 if scale is None else scale
+    k = k.repeat_interleave(group, dim=2).float()
+    v = v.repeat_interleave(group, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    qi = torch.arange(S, device=q.device)[:, None]
+    kj = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kj <= qi
+    if window is not None:
+        mask &= kj > qi - window
+    s = torch.where(mask, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v).to(q.dtype)

@@ -1,0 +1,124 @@
+"""Where the serve path of the PyTorch port spends its time on one GPU.
+
+    PYTHONPATH=src python3 -m repro_torch.launch.profile_serve [--out serve_profile.json]
+
+Serves full-width Qwen3-1.7B (random weights, seed 0) on the serve shape
+defined here and driven by ``chip_smoke.py``'s serve phase: 8 prompts of
+``PROMPT_LENS`` tokens left-padded to 2048, then one-token decode steps over
+the 2048 + 32-slot cache. For the prefill and for a decode step it reports:
+
+- wall time (host clock around work that ends in a synchronise), median of
+  ``STEPS`` runs after ``WARMUP``;
+- from ``torch.profiler`` over the same work: the device busy share
+  (summed kernel time over wall time; one stream, so kernels do not
+  overlap), kernel launches, and device time by kernel class.
+
+Prints the result and, with ``--out``, writes it as JSON. Needs a CUDA
+card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs import registry
+from repro_torch.launch.profile_step import device_time, gpu_line
+from repro_torch.models import transformer as T
+from repro_torch.serve import decode
+
+# the serve shape: 8 requests of 512-2048 random tokens, left-padded to SEQ,
+# NEW tokens generated each; chip_smoke.py serves the same
+PROMPT_LENS = (512, 731, 950, 1170, 1389, 1609, 1828, 2048)
+SEQ, NEW = 2048, 32
+BATCH = len(PROMPT_LENS)
+# runs timed (then as many profiled) after WARMUP; the decode steps of both
+# phases, WARMUP + 2 * STEPS, fit in the NEW cache slots past the prompt
+STEPS, WARMUP = 8, 2
+
+
+def _measure(fn, n: int) -> dict:
+    """Wall ms of ``fn`` n times, then the same n under the profiler."""
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        window_ms = 1e3 * (time.perf_counter() - t0)
+    by_class, launches, top = device_time(prof)
+    busy = sum(by_class.values())
+    return {
+        "wall_ms_median": statistics.median(walls), "wall_ms_runs": walls,
+        "profiled_window_ms_per_run": window_ms / n,
+        "device_busy_ms_per_run": busy / n,
+        "device_busy_share": busy / window_ms,
+        "kernel_launches_per_run": launches / n,
+        "device_ms_per_run_by_class": {k: v / n for k, v in
+                                       sorted(by_class.items(), key=lambda kv: -kv[1])},
+        "top_kernels_ms_per_run": [(round(ms / n, 4), c // n, k) for ms, c, k in top[:10]],
+    }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_serve: no CUDA device", file=sys.stderr)
+        return 1
+    card = gpu_line()
+    cfg = registry.get("qwen3-1.7b")
+    model = T.init(cfg, seed=0)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab, n).tolist() for n in PROMPT_LENS]
+    tokens, _, _ = decode.RequestBatcher(batch_size=BATCH, seq_len=SEQ).pack(prompts)
+    result = {"gpu": card, "torch": torch.__version__,
+              "at": f"{cfg.name}, {BATCH} x {SEQ} prompt tokens"}
+    with torch.inference_mode():
+        params = T.compute_params(model, cfg.compute_dtype)
+
+        def prefill():
+            return T.prefill(params, tokens, cfg, cache_len=SEQ + NEW)
+
+        for _ in range(WARMUP):
+            prefill()
+        result["prefill"] = _measure(prefill, STEPS)
+        logits, cache = prefill()
+        step = decode.make_serve_step(cfg)
+        state = {"tok": torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None],
+                 "index": SEQ}
+
+        def one_step():
+            state["tok"], _, _ = step(params, state["tok"], cache, state["index"])
+            state["index"] += 1
+
+        for _ in range(WARMUP):
+            one_step()
+        result["decode_step"] = _measure(one_step, STEPS)
+    result["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(json.dumps(result, indent=1))
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(result, indent=1))
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -42,6 +42,7 @@ from repro_torch.train.trainer import TrainerConfig, make_train_step
 CLASSES = (
     ("port: lars_update", ("lars_update_kernel",)),
     ("port: ls_xent", ("ls_xent_",)),
+    ("port: flash_attn", ("flash_fwd_kernel",)),
     ("convolution / matmul", ("conv", "gemm", "xmma", "cutlass", "wgrad", "dgrad",
                               "implicit", "sm90_", "cudnn", "nhwc", "nchw", "nvjet")),
     ("reduction", ("reduce", "norm")),
@@ -57,6 +58,32 @@ def classify(name: str) -> str:
         if any(f in low for f in frags):
             return cls
     return "other"
+
+
+def device_time(prof) -> tuple[dict[str, float], int, list]:
+    """(device ms by kernel class, kernel launches, [(ms, count, name)]
+    sorted by time) over a ``torch.profiler`` window."""
+    by_class: dict[str, float] = {}
+    launches = 0
+    top = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        launches += ev.count
+        cls = classify(ev.key)
+        by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
+        top.append((dev_us / 1e3, ev.count, ev.key[:90]))
+    top.sort(reverse=True)
+    return by_class, launches, top
+
+
+def gpu_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
 def timed(fn, n: int) -> list[float]:
@@ -80,9 +107,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    card = gpu_line()
     dev = torch.device("cuda")
     cfg = resnet.ResNetConfig.resnet50(num_classes=1000, image_size=224)
     model = resnet.init(cfg, seed=0)
@@ -133,21 +158,8 @@ def main() -> int:
                 one_step()
             torch.cuda.synchronize()
             window_ms = 1e3 * (time.perf_counter() - t0)
-        by_class: dict[str, float] = {}
-        launches = 0
-        top = []
-        for ev in prof.key_averages():
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-            if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            launches += ev.count
-            cls = classify(ev.key)
-            by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
-            top.append((dev_us / 1e3, ev.count, ev.key[:90]))
+        by_class, launches, top = device_time(prof)
         busy_ms = sum(by_class.values())
-        top.sort(reverse=True)
         result["batches"][gb] = {
             "wall_ms_median": {k: statistics.median(v) for k, v in walls.items()},
             "wall_ms_runs": walls,

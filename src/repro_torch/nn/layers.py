@@ -1,6 +1,8 @@
-"""Layers of the ResNet main path: plain functions on tensors, and the small
-modules that hold their parameters under the JAX package's names
-(``kernel``, ``bias``, ``bn_scale``, ``bn_bias``).
+"""Layers: plain functions on tensors, and the small modules that hold the
+ResNet's parameters under the JAX package's names (``kernel``, ``bias``,
+``bn_scale``, ``bn_bias``). The transformer's layers (norms, embedding,
+MLP) take their parameters as tensors from the model's tree
+(``models/transformer.py``).
 
 Layout: the functions take NCHW activations (the permuted NHWC input keeps
 channels-last strides, which cuDNN prefers) and OIHW conv kernels;
@@ -94,6 +96,68 @@ def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2) -> torch.Tensor:
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(2, 3))
+
+
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int) -> nn.ParameterDict:
+    """A bias-free ``kernel`` (in, out), LeCun fan-in normal: the
+    transformer's projections and MLP matrices."""
+    return nn.ParameterDict({"kernel": winit.lecun_normal(gen, (in_dim, out_dim))})
+
+
+def layernorm_init(dim: int, device) -> nn.ParameterDict:
+    return nn.ParameterDict({"norm_scale": torch.ones(dim, device=device),
+                             "norm_bias": torch.zeros(dim, device=device)})
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last dim in fp32, output in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+
+
+def rmsnorm_init(dim: int, device) -> nn.ParameterDict:
+    """``norm_scale``, zero-init: applied as ``1 + w``."""
+    return nn.ParameterDict({"norm_scale": torch.zeros(dim, device=device)})
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Gemma-style RMSNorm for every arch: the scale is stored as ``w`` and
+    applied as ``1 + w`` (zero init), fp32 inside, output in x's dtype."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * (1.0 + scale)).to(x.dtype)
+
+
+def embed(embedding: torch.Tensor, ids: torch.Tensor,
+          dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return cast(embedding, dtype)[ids.long()]
+
+
+def unembed(embedding: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Tied output projection: x @ embedding.T in x's dtype."""
+    return x @ cast(embedding, x.dtype).T
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+# jax.nn.gelu is the tanh approximation unless told otherwise, so "gelu"
+# and "gelu_tanh" are the same function.
+ACTS = {"gelu": _gelu_tanh, "silu": F.silu, "relu": F.relu, "gelu_tanh": _gelu_tanh}
+
+
+def mlp(p: dict, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
+    """(Gated) MLP over ``{"up", "down"[, "gate"]}: {"kernel": (in, out)}``."""
+    h = dense(x, p["up"]["kernel"])
+    if "gate" in p:
+        h = h * ACTS[act](dense(x, p["gate"]["kernel"]))
+    else:
+        h = ACTS[act](h)
+    return dense(h, p["down"]["kernel"])
 
 
 # ----------------------------------------------------------------- modules --

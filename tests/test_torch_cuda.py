@@ -10,14 +10,17 @@ runs on a machine that has none:
 import pytest
 import torch
 
+from repro_torch.configs import registry
 from repro_torch.core import losses
 from repro_torch.core.batch_control import build_plan
 from repro_torch.core.schedules import BatchSchedule, BatchStage
 from repro_torch.data.synthetic import SyntheticImageNet
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attn import flash_attention_cuda
 from repro_torch.kernels.lars_update import lars_update_cuda
 from repro_torch.kernels.ls_xent import ls_xent_bwd_cuda, ls_xent_fwd_cuda
 from repro_torch.models import resnet
+from repro_torch.models import transformer as T
 from repro_torch.train.state import TrainState
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -121,9 +124,89 @@ def test_tiny_resnet_trains_the_same_on_the_card_and_the_host(cuda):
         out[d] = (state, [h["loss"] for h in hist])
     n_lars = sum(1 for n in out["cpu"][0].params if "kernel" in n)
     assert ops.launch_counts() == {"lars_update": 3 * n_lars, "ls_xent_fwd": 3,
-                                   "ls_xent_bwd": 3}
+                                   "ls_xent_bwd": 3, "flash_attn": 0}
     # cuDNN and the host sum convolutions in different orders
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         assert abs(a - b) <= 1e-4 * max(1.0, abs(b))
     for k, p in out["cpu"][0].params.items():
         torch.testing.assert_close(out["cuda"][0].params[k].cpu(), p, rtol=1e-4, atol=1e-4)
+
+
+# fp32: the kernel and the plain version sum in different orders. bf16: the
+# same fp32 math, then one bf16 rounding of the output, which may fall on
+# either side (one bf16 step, 2^-7 relative).
+FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+             torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+
+
+@pytest.mark.parametrize("b,s,skv,h,hkv,d", [
+    (2, 64, 64, 2, 2, 32), (1, 200, 200, 4, 2, 64), (2, 128, 128, 4, 1, 128),
+    (1, 96, 96, 2, 1, 256), (1, 1000, 1000, 2, 1, 128), (1, 64, 130, 2, 2, 64),
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, b, s, skv, h, hkv, d, causal, dtype):
+    g_ = _gen(cuda, s + d)
+    q = torch.randn(b, s, h, d, generator=g_, device=cuda).to(dtype)
+    k = torch.randn(b, skv, hkv, d, generator=g_, device=cuda).to(dtype)
+    v = torch.randn(b, skv, hkv, d, generator=g_, device=cuda).to(dtype)
+    before = flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("window,softcap,scale", [(16, None, None), (256, 50.0, None),
+                                                  (48, 30.0, 0.1), (None, 50.0, 0.05)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_window_softcap_scale(cuda, window, softcap, scale, dtype):
+    g_ = _gen(cuda, 5)
+    q = (3 * torch.randn(2, 300, 4, 128, generator=g_, device=cuda)).to(dtype)
+    k = (3 * torch.randn(2, 300, 2, 128, generator=g_, device=cuda)).to(dtype)
+    v = torch.randn(2, 300, 2, 128, generator=g_, device=cuda).to(dtype)
+    kw = dict(causal=True, window=window, softcap=softcap, scale=scale)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    if window is not None and window < 300:
+        # fewer keys than queries: the last row keeps one key and agrees; one
+        # key fewer leaves it none, which the wrapper refuses on both devices
+        skv = 300 - window + 1
+        kc, vc = k[:, :skv].contiguous(), v[:, :skv].contiguous()
+        got = ops.flash_attention(q, kc, vc, **kw)
+        want = ref.flash_attention_ref(q, kc, vc, **kw)
+        torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+        for dev in (cuda, "cpu"):
+            with pytest.raises(ValueError, match="no key"):
+                ops.flash_attention(q.to(dev), kc[:, 1:].contiguous().to(dev),
+                                    vc[:, 1:].contiguous().to(dev), **kw)
+
+
+def test_transformer_forward_under_autograd_raises_on_the_card(cuda):
+    """The flash kernel has no backward: rather than drop the gradients of
+    everything behind attention, the wrapper refuses tracked inputs."""
+    cfg = registry.get_smoke("qwen3-1.7b")
+    model = T.init(cfg, seed=0, device=cuda)
+    tokens = torch.randint(1, cfg.vocab, (2, 16), generator=_gen(cuda, 0), device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        T.forward(model, tokens, cfg)
+    with torch.no_grad():
+        logits, _ = T.forward(model, tokens, cfg)
+    assert logits.shape == (2, 16, cfg.vocab) and bool(torch.isfinite(logits).all())
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.randn(1, 8, 2, 64, device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):        # head dim 48 has no kernel
+        x = torch.randn(1, 8, 2, 48, device=cuda)
+        flash_attention_cuda(x, x, x)
+    with pytest.raises(ValueError):        # 3 query heads over 2 kv heads
+        flash_attention_cuda(torch.randn(1, 8, 3, 64, device=cuda), q, q)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q.transpose(1, 2), q, q)

@@ -22,6 +22,7 @@ from repro.core import losses as jlosses
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.flash_attn import flash_attention_cuda
 from repro_torch.kernels.lars_update import lars_update_cuda
 from repro_torch.kernels.ls_xent import ls_xent_bwd_cuda, ls_xent_fwd_cuda
 
@@ -160,8 +161,10 @@ def test_cpu_tensors_launch_no_kernel():
     x = torch.randn(4, 10, requires_grad=True)
     ops.ls_xent(x, torch.tensor([1, 2, 3, 4]), smoothing=0.1).sum().backward()
     ops.lars_update(torch.randn(8), torch.randn(8), torch.zeros(8), **LARS_KW)
+    ops.flash_attention(torch.randn(1, 8, 2, 32), torch.randn(1, 8, 1, 32),
+                        torch.randn(1, 8, 1, 32))
     assert ops.launch_counts() == {"lars_update": 0, "ls_xent_fwd": 0,
-                                   "ls_xent_bwd": 0}
+                                   "ls_xent_bwd": 0, "flash_attn": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -175,6 +178,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         lars_update_cuda(torch.ones(3), torch.ones(3), torch.ones(3), torch.ones(1),
                          lr=1.0, mom=0.9, weight_decay=0.0)
+    q = torch.randn(1, 8, 2, 32)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q, q, q)
     assert ops.launch_counts()["ls_xent_fwd"] == 0
 
 

@@ -1,0 +1,103 @@
+"""The port's serving path against the JAX package's, on the CPU.
+
+``generate`` runs prefill (the flash kernel's plain version here) and then
+decode steps over the KV cache. In fp32 compute both packages pick the same
+greedy tokens; in bf16 an argmax tie could go either way, so tokens are
+compared in fp32 and logits within a tolerance in
+tests/test_torch_transformer.py. Prompts are longer than gemma2's window of
+16, so its local layer decodes from the rolled cache.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.serve import decode as jdecode
+from repro_torch.serve import decode as tdecode
+from test_torch_transformer import ARCHS, pair, tokens
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generate_tokens_equal_jax_in_fp32(arch):
+    jp, jcfg, tp, tcfg = pair(arch, "float32")
+    ids = tokens(5)
+    want = jdecode.generate(jp, jnp.asarray(ids), jcfg, max_new_tokens=6)
+    got = tdecode.generate(tp, torch.from_numpy(ids), tcfg, max_new_tokens=6)
+    assert got.dtype == torch.int32 and got.shape == (2, 6)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_serve_step_matches_decode_argmax():
+    _, _, tp, tcfg = pair("gemma2-27b", "float32")
+    from repro_torch.models import transformer as tT
+    ids = torch.from_numpy(tokens(6))
+    logits, cache = tT.prefill(tp, ids, tcfg, cache_len=42)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    nxt, lg, cache = tdecode.make_serve_step(tcfg)(tp, tok, cache, 40)
+    assert nxt.shape == (2, 1) and nxt.dtype == torch.int32
+    torch.testing.assert_close(nxt[:, 0], torch.argmax(lg[:, -1], -1).to(torch.int32))
+
+
+def test_generate_bf16_is_finite_and_in_vocab():
+    _, _, tp, tcfg = pair("qwen3-1.7b", "bfloat16")
+    out = tdecode.generate(tp, torch.from_numpy(tokens(7)), tcfg, max_new_tokens=5)
+    assert out.shape == (2, 5)
+    assert int(out.min()) >= 0 and int(out.max()) < tcfg.vocab
+
+
+def test_temperature_sampling_follows_the_generator():
+    _, _, tp, tcfg = pair("qwen3-1.7b", "float32")
+    ids = torch.from_numpy(tokens(8))
+
+    def draw(seed):
+        g = torch.Generator().manual_seed(seed)
+        return tdecode.generate(tp, ids, tcfg, max_new_tokens=8, temperature=1.0,
+                                generator=g)
+    a, b, c = draw(1), draw(1), draw(2)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not torch.equal(a, c)
+    assert int(a.min()) >= 0 and int(a.max()) < tcfg.vocab
+
+
+@pytest.mark.parametrize("prompts", [
+    [[1, 2, 3], [4, 5, 6, 7, 8, 9]],
+    [[3] * 12, [], [7]],
+    [],
+])
+def test_request_batcher_packs_and_unpacks_as_jax(prompts):
+    jb = jdecode.RequestBatcher(batch_size=3, seq_len=8, pad_id=9)
+    tb = tdecode.RequestBatcher(batch_size=3, seq_len=8, pad_id=9)
+    jbuf, jlens, jn = jb.pack(prompts)
+    tbuf, tlens, tn = tb.pack(prompts, device="cpu")
+    assert tn == jn and tbuf.dtype == torch.int32
+    np.testing.assert_array_equal(tbuf.numpy(), np.asarray(jbuf))
+    np.testing.assert_array_equal(tlens.numpy(), np.asarray(jlens))
+    gen = np.arange(3 * 4, dtype=np.int32).reshape(3, 4)
+    assert tb.unpack(torch.from_numpy(gen), tn) == [
+        [int(x) for x in row] for row in jb.unpack(jnp.asarray(gen), jn)]
+
+
+def test_request_batcher_refuses_too_many_prompts_and_no_card(monkeypatch):
+    tb = tdecode.RequestBatcher(batch_size=1, seq_len=4)
+    with pytest.raises(ValueError):
+        tb.pack([[1], [2]], device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tb.pack([[1]])
+
+
+def test_batched_generate_serves_left_padded_requests():
+    """The batcher's left-padded batch through generate, sliced back out: the
+    JAX package does the same with no padding mask, so pad tokens are
+    attended by both and the tokens agree in fp32."""
+    jp, jcfg, tp, tcfg = pair("gemma2-27b", "float32")
+    rng = np.random.RandomState(9)
+    prompts = [list(rng.randint(1, 128, n)) for n in (30, 20, 5)]
+    jb = jdecode.RequestBatcher(batch_size=4, seq_len=32)
+    tb = tdecode.RequestBatcher(batch_size=4, seq_len=32)
+    jbuf, _, n = jb.pack(prompts)
+    tbuf, _, _ = tb.pack(prompts, device="cpu")
+    want = jb.unpack(jdecode.generate(jp, jbuf, jcfg, max_new_tokens=4), n)
+    got = tb.unpack(tdecode.generate(tp, tbuf, tcfg, max_new_tokens=4), n)
+    assert got == [[int(x) for x in row] for row in want]

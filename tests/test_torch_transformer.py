@@ -1,0 +1,216 @@
+"""The port's transformer against the JAX package's, on the CPU.
+
+Weights are made by ``repro.models.transformer.init`` (norm scales given
+random values so that every norm shows) and carried across with
+``repro_torch.convert.transformer_from_jax``; tokens come from numpy with a
+fixed seed. The port's prefill attention runs the flash kernel's plain
+version here, the JAX model its ``_sdpa``: the same function, with the
+logits in fp32 on one side and in the compute dtype on the other.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as jregistry
+from repro.models import transformer as jT
+from repro_torch import convert
+from repro_torch.configs import registry as tregistry
+from repro_torch.kernels import ops
+from repro_torch.models import transformer as tT
+
+ARCHS = ("qwen3-1.7b", "gemma2-27b")
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+# fp32: the same math in another order. bf16: the JAX model rounds its
+# attention logits (and, by XLA's CPU fusion, some intermediates) at other
+# places than the port, whose flash path keeps the logits in fp32; through
+# two layers that moves the fp32 logits (|logit| < 1.1 here) by up to 0.013,
+# about three bf16 steps of their size.
+LOGIT_TOL = {"float32": dict(rtol=1e-4, atol=2e-5),
+             "bfloat16": dict(rtol=0.02, atol=0.02)}
+
+
+def pair(arch, dtype="float32", seed=0):
+    """(JAX params, JAX cfg, port tree, port cfg) from the same weights."""
+    jdt, tdt = DTYPES[dtype]
+    jcfg = dataclasses.replace(jregistry.get_smoke(arch), compute_dtype=jdt)
+    tcfg = dataclasses.replace(tregistry.get_smoke(arch), compute_dtype=tdt)
+    rng = np.random.RandomState(seed + 100)
+    jp = jax.tree_util.tree_map_with_path(
+        lambda path, p: jnp.asarray(0.3 * rng.randn(*p.shape).astype(np.float32))
+        if "norm_scale" in jax.tree_util.keystr(path) else p,
+        jT.init(jax.random.key(seed), jcfg))
+    model = tT.init(tcfg, seed=seed, device="cpu")
+    model.load_state_dict(convert.transformer_from_jax(
+        jax.tree.map(np.asarray, jp), tcfg, device="cpu"))
+    return jp, jcfg, model.tree(), tcfg
+
+
+def tokens(seed, b=2, s=40, vocab=128):
+    return np.random.RandomState(seed).randint(0, vocab, (b, s)).astype(np.int32)
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_forward_logits_match_jax(arch, dtype):
+    jp, jcfg, tp, tcfg = pair(arch, dtype)
+    ids = tokens(1)
+    want, _ = jT.forward(jp, jnp.asarray(ids), jcfg)
+    got, aux = tT.forward(tp, torch.from_numpy(ids), tcfg)
+    assert got.dtype == torch.float32 and got.shape == (2, 40, 128)
+    assert aux.item() == 0.0
+    np.testing.assert_allclose(_np(got), np.asarray(want), **LOGIT_TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_prefill_then_decode_match_jax(arch, dtype):
+    """A 40-token prompt (gemma2's window is 16, so its local layer's cache
+    is rolled), then 4 decode steps from the same caches."""
+    jp, jcfg, tp, tcfg = pair(arch, dtype)
+    ids = tokens(2)
+    S, steps = ids.shape[1], 4
+    jlog, jcache = jT.prefill(jp, jnp.asarray(ids), jcfg, cache_len=S + steps)
+    tlog, tcache = tT.prefill(tp, torch.from_numpy(ids), tcfg, cache_len=S + steps)
+    assert tlog.shape == (2, 1, 128)
+    np.testing.assert_allclose(_np(tlog), np.asarray(jlog), **LOGIT_TOL[dtype])
+    jlayers = convert.layers_from_jax(jax.tree.map(np.asarray, jcache), jcfg)
+    for kind, jc, tc in zip(tcfg.kinds(), jlayers, tcache):
+        want_len = S + steps if kind == "attn" else tcfg.window
+        for name in ("k", "v"):
+            assert tc[name].dtype == torch.bfloat16
+            assert tc[name].shape == (2, want_len, tcfg.n_kv_heads, tcfg.head_dim)
+            # bf16 caches of k/v that the two models computed apart by fp32
+            # noise (a rounding may fall either way: one bf16 step) or, in
+            # bf16 compute, by up to 0.08 where |k|, |v| reach 4.3 (about
+            # three bf16 steps at that size), on small elements too
+            tol = dict(rtol=2 ** -7, atol=1e-6) if dtype == "float32" else \
+                dict(rtol=2 ** -5, atol=2 ** -3)
+            np.testing.assert_allclose(_np(tc[name]), np.asarray(jc[name], np.float32),
+                                       **tol)
+    rng = np.random.RandomState(3)
+    for t in range(steps):
+        tok = rng.randint(0, 128, (2, 1)).astype(np.int32)
+        jlog, jcache = jT.decode_step(jp, jnp.asarray(tok), jcache, S + t, jcfg)
+        tlog, tcache = tT.decode_step(tp, torch.from_numpy(tok), tcache, S + t, tcfg)
+        np.testing.assert_allclose(_np(tlog), np.asarray(jlog), **LOGIT_TOL[dtype])
+
+
+def test_prefill_launches_no_kernel_on_the_host():
+    _, _, tp, tcfg = pair("qwen3-1.7b")
+    ops.reset_launch_counts()
+    tT.prefill(tp, torch.from_numpy(tokens(4)), tcfg)
+    assert ops.launch_counts()["flash_attn"] == 0
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_gradients_on_the_host_match_jax(arch):
+    """On the host the attention is the plain version and differentiable
+    (on the card the flash kernel has no backward and refuses autograd):
+    every weight's gradient of a fixed projection of the fp32 logits
+    matches jax.grad through the JAX model, to fp32 summation-order noise
+    (1e-5 of the gradient's largest element, as elements cancel)."""
+    jp, jcfg, _, tcfg = pair(arch)
+    ids = tokens(5)
+    w = np.random.RandomState(6).randn(2, 40, 128).astype(np.float32)
+    jg = jax.grad(lambda p: (jT.forward(p, jnp.asarray(ids), jcfg)[0] * w).sum())(jp)
+    want = convert.transformer_from_jax(jax.tree.map(np.asarray, jg), tcfg, device="cpu")
+    model = tT.init(tcfg, seed=0, device="cpu")
+    model.load_state_dict(convert.transformer_from_jax(
+        jax.tree.map(np.asarray, jp), tcfg, device="cpu"))
+    logits, _ = tT.forward(model, torch.from_numpy(ids), tcfg)
+    (logits * torch.from_numpy(w)).sum().backward()
+    for name, p in model.named_parameters():
+        ref = want[name].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), ref, rtol=1e-4,
+                                   atol=1e-5 * np.abs(ref).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_num_params_and_state_dict_match_jax(arch):
+    for getter in ("get", "get_smoke"):
+        jcfg = getattr(jregistry, getter)(arch)
+        tcfg = getattr(tregistry, getter)(arch)
+        assert tcfg.num_params() == jcfg.num_params()
+        assert tcfg.kinds() == jcfg.kinds()
+        assert (tcfg.n_prefix, tcfg.n_blocks) == (jcfg.n_prefix, jcfg.n_blocks)
+    jp, jcfg, tp, tcfg = pair(arch)
+    model = tT.init(tcfg, seed=0, device="cpu")
+    # num_params leaves out the norm scales in both packages; the trees hold them
+    assert (sum(p.numel() for p in model.parameters())
+            == sum(np.size(a) for a in jax.tree.leaves(jp)))
+    sd = convert.transformer_from_jax(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    assert set(sd) == set(model.state_dict())
+    assert all(sd[k].shape == v.shape for k, v in model.state_dict().items())
+
+
+def test_scan_blocks_off_keeps_the_layer_order():
+    """With scan_blocks=False every layer is in ``prefix``; conversion gives
+    the same port weights as the scanned tree, layer by layer."""
+    jcfg = jregistry.get_smoke("gemma2-27b")
+    tcfg = tregistry.get_smoke("gemma2-27b")
+    flat = dataclasses.replace(jcfg, scan_blocks=False)
+    scanned = jT.init(jax.random.key(0), jcfg)
+    layers = convert.layers_from_jax(jax.tree.map(np.asarray, scanned), jcfg)
+    unscanned = {"embed": scanned["embed"], "final_norm": scanned["final_norm"],
+                 "prefix": layers}
+    a = convert.transformer_from_jax(jax.tree.map(np.asarray, scanned), tcfg, device="cpu")
+    b = convert.transformer_from_jax(
+        jax.tree.map(np.asarray, unscanned),
+        dataclasses.replace(tcfg, scan_blocks=False), device="cpu")
+    assert flat.n_prefix == 2 and jcfg.n_prefix == 0
+    for k in a:
+        torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch", [a for a in jregistry.ARCH_IDS if a not in ARCHS])
+def test_unported_archs_raise_with_their_slice(arch):
+    assert tregistry.ARCH_IDS == jregistry.ARCH_IDS
+    with pytest.raises(NotImplementedError, match="slice G"):
+        tregistry.get(arch)
+    with pytest.raises(NotImplementedError, match="slice G"):
+        tregistry.get_smoke(arch)
+
+
+@pytest.mark.parametrize("kind", ["ssd", "rglru", "cross"])
+def test_unported_layer_kinds_raise(kind):
+    cfg = dataclasses.replace(tregistry.get_smoke("qwen3-1.7b"), pattern=(kind,))
+    with pytest.raises(NotImplementedError, match="slice G"):
+        tT.init(cfg, device="cpu")
+    moe = dataclasses.replace(tregistry.get_smoke("qwen3-1.7b"), mlp="moe")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        tT.init(moe, device="cpu")
+
+
+def test_qwen3_source_names_the_1_7b_model():
+    cfg = tregistry.get("qwen3-1.7b")
+    assert cfg.source == "hf:Qwen/Qwen3-1.7B"
+    assert cfg.num_params() == 1_720_451_072
+
+
+def test_compute_params_casts_matrices_only():
+    _, _, tp, tcfg = pair("gemma2-27b")
+    cp = tT.compute_params(tp, torch.bfloat16)
+    assert cp["embed"]["embedding"].dtype == torch.bfloat16
+    assert cp["layers"][0]["mixer"]["q"]["kernel"].dtype == torch.bfloat16
+    assert cp["layers"][0]["mlp"]["gate"]["kernel"].dtype == torch.bfloat16
+    assert cp["layers"][0]["pre_norm"]["norm_scale"].dtype == torch.float32
+    assert cp["final_norm"]["norm_scale"].dtype == torch.float32
+
+
+def test_entry_points_without_a_device_refuse_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tregistry.get_smoke("qwen3-1.7b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tT.init(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tT.init_cache(cfg, 2, 8)
