@@ -6,22 +6,29 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``src/repro_torch/csrc`` into ``build/``;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   main path's shapes, and fails on any tolerance miss;
+   main path's shapes, and fails on any tolerance miss: the multi-tensor
+   LARS step over all 161 ResNet-50 leaves (LARS and skip, nesterov off
+   and on), ``ls_xent``, and flash attention at nine shapes, bf16 through
+   the tensor-core kernel and fp32 through the fp32 kernel (the wrapper
+   picks by dtype), each under ``kernels/ref.py::flash_attention_tol``;
 4. times each kernel beside its bound (the larger of bytes over the HBM
-   rate and fp32 operations over the fp32 rate), its plain version and,
-   where one exists, the single PyTorch call computing the same function;
+   rate and operations over the peak for the inputs' type), its plain
+   version and, where one exists, the single PyTorch call computing the
+   same function; LARS as the whole ``core/lars.update`` of one step;
 5. trains full-width ResNet-50 at 224 px through ``Trainer.run`` over a
    two-stage batch-size plan (32 then 64 images a step), and fails on a
-   non-finite loss, a skipped step or a kernel the run did not launch;
+   non-finite loss, a skipped step, a kernel the run did not launch, or
+   LARS launched other than twice a step;
 6. serves full-width Qwen3-1.7B (random weights from seed 0) through
    ``RequestBatcher`` and ``generate`` at the serve shape of
    ``repro_torch.launch.profile_serve``: 8 prompts of 512-2048 tokens,
    left-padded to 2048, 32 new tokens each, greedy; fails on a non-finite
-   logit, on a prefill that does not launch the flash kernel once a layer
-   (28) or on a decode step that launches it at all;
+   logit, on a prefill that does not launch the tensor-core flash kernel
+   once a layer (28) or on a decode step that launches it at all;
 7. runs a tiny ResNet two steps, and the Qwen3 and Gemma2 smoke configs
-   through ``generate``, on the card and on the CPU from the same weights
-   and inputs, and fails if they disagree;
+   (fp32, so the fp32 flash kernel) through ``generate``, on the card and
+   on the CPU from the same weights and inputs, and fails if they
+   disagree;
 8. prints one ``{"kernels": [...]}`` line, the card line again, and as the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -53,10 +60,11 @@ XENT_BWD_TOL = {"float32": (1e-6, 1e-5),
 # tiny ResNet, fp32, card vs host: cuDNN and the CPU sum convolutions in
 # different orders, and two LARS steps carry that difference forward
 TINY_TOL = 1e-3
-# flash kernel vs its plain version on the same inputs: both compute in fp32
-# (sum order differs); bf16 output adds one rounding that may fall either
-# way (one bf16 step, 2^-7 relative)
-FLASH_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2.0 ** -7)}   # (atol, rtol)
+# flash kernels vs their plain version on the same inputs, elementwise:
+# kernels/ref.py::flash_attention_tol. fp32: 1e-5 + 1e-5|ref| (sum order);
+# bf16: 1e-5 + 2^-7|ref| + 2^-8 (P.|v|), the output's rounding plus one bf16
+# rounding of each probability before P.V on the tensor cores
+FLASH_TOL = "fp32 1e-5 + 1e-5|ref|; bf16 1e-5 + 2^-7|ref| + 2^-8 P.|v|"
 # smoke transformers, fp32 compute, card vs host: matmuls and the attention
 # sum in different orders; two layers keep that near fp32 noise
 SMOKE_LOGIT_TOL = 1e-4           # abs and relative, on prefill logits
@@ -116,11 +124,12 @@ def eager_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_flash(torch, dev, gen) -> float:
-    """Flash kernel against its plain version at the serve path's shapes and
-    the kernel's other features; returns the max abs error."""
+def check_flash(torch, dev, gen) -> dict:
+    """Both flash kernels against their plain version at the serve path's
+    shapes and the kernels' other features; returns the max abs error by
+    dtype (bf16: the tensor-core kernel, fp32: the fp32 kernel)."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attn import flash_attention_cuda
+    from repro_torch.kernels.flash_attn import flash_attention_f32, flash_attention_tc
 
     cases = [  # (B, S, Skv, H, Hkv, D, dtype, causal, window, softcap)
         (8, 2048, 2048, 16, 8, 128, torch.bfloat16, True, None, None),  # Qwen3 prefill
@@ -133,63 +142,81 @@ def check_flash(torch, dev, gen) -> float:
         (2, 1000, 1000, 16, 8, 128, torch.float32, False, 300, 30.0),
         (4, 48, 48, 4, 2, 32, torch.float32, True, 16, 50.0),            # smoke configs
     ]
-    worst = 0.0
+    wrapper = {torch.bfloat16: flash_attention_tc, torch.float32: flash_attention_f32}
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     for b, sq, skv, h, hkv, d, dtype, causal, window, softcap in cases:
         q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
         k = torch.randn(b, skv, hkv, d, generator=gen, device=dev).to(dtype)
         v = torch.randn(b, skv, hkv, d, generator=gen, device=dev).to(dtype)
         kw = dict(causal=causal, window=window, softcap=softcap)
-        before = flash_attention_cuda.launches
+        before = wrapper[dtype].launches
         got = ops.flash_attention(q, k, v, **kw).float()
         want = ref.flash_attention_ref(q, k, v, **kw).float()
         torch.cuda.synchronize()
-        if flash_attention_cuda.launches != before + 1:
-            fail("ops.flash_attention did not launch the kernel on the card")
+        if wrapper[dtype].launches != before + 1:
+            fail(f"ops.flash_attention did not launch {wrapper[dtype].__name__} on the card")
         err = (got - want).abs()
-        atol, rtol = FLASH_TOL[str(dtype).split(".")[-1]]
+        bound = ref.flash_attention_tol(q, k, v, want, **kw)
         e = err.max().item()
-        worst = max(worst, e)
+        worst[dtype] = max(worst[dtype], e)
         print(f"check flash_attn B{b} S{sq} Skv{skv} H{h}/{hkv} D{d} {str(dtype)[6:]} "
-              f"causal={causal} window={window} softcap={softcap}: max_abs_err {e:.3e}")
-        if not bool((err <= atol + rtol * want.abs()).all()):
-            fail(f"flash_attn disagrees with flash_attention_ref at B{b} S{sq} D{d}")
-        del q, k, v, got, want, err
-    print(f"check flash_attn: max_abs_err {worst:.3e} (tol fp32 1e-5 + 1e-5|ref|, "
-          f"bf16 1e-5 + 2^-7|ref|)")
-    return worst
+              f"causal={causal} window={window} softcap={softcap}: max_abs_err {e:.3e}, "
+              f"worst err/tol {(err / bound).max().item():.3f} ({wrapper[dtype].__name__})")
+        if not bool((err <= bound).all()):
+            fail(f"flash_attn disagrees with flash_attention_ref at B{b} S{sq} D{d} {dtype}")
+        del q, k, v, got, want, err, bound
+    print(f"check flash_attn: max_abs_err bf16 {worst[torch.bfloat16]:.3e}, fp32 "
+          f"{worst[torch.float32]:.3e} (tol {FLASH_TOL})")
+    return {"bf16": worst[torch.bfloat16], "fp32": worst[torch.float32]}
 
 
 def time_flash(torch, dev, gen) -> dict:
-    """The flash kernel at the Qwen3-1.7B prefill shape, beside its plain
-    version, SDPA and its bound (bf16 inputs: the bf16 tensor-core rate)."""
+    """Both flash kernels at their main path's shapes, beside their plain
+    version, SDPA and their bound: the tensor-core kernel at the Qwen3-1.7B
+    prefill shape (bf16 rate), the fp32 kernel at the Qwen3 smoke config's
+    (fp32 rate)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attn import flash_attention_cuda
+    from repro_torch.kernels.flash_attn import flash_attention_f32, flash_attention_tc
     from repro_torch.launch.profile_serve import BATCH, SEQ
 
-    b, s, h, hkv, d = BATCH, SEQ, 16, 8, 128
-    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    pairs = b * h * s * (s + 1) // 2     # (query, key) pairs the causal mask keeps
-    t = {
-        "ms": graph_ms(torch, lambda: flash_attention_cuda(q, k, v), iters=10, replays=3),
-        "eager_ms": eager_ms(torch, lambda: ops.flash_attention(q, k, v), iters=10),
-        "plain_ms": eager_ms(torch, lambda: ref.flash_attention_ref(q, k, v), iters=3),
-        # the same function in one PyTorch call, on (B, H, S, D) copies made
-        # beforehand; timed as a yardstick, used nowhere in the port
-        "library_ms": graph_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), iters=10, replays=3),
-        "bytes": 2 * (2 * q.numel() + 2 * k.numel()),     # q, k, v read, o written
-        "flops": 4 * d * pairs,                           # q.k and p.v, 2 flops a MAC
-        "flops_per_s": BF16_FLOPS_PER_S,
-        "rate": "bf16 tensor cores 989 TFLOP/s, HBM 3.35 TB/s",
-        "at": f"B{b} S{s} H{h} Hkv{hkv} D{d} bf16 causal (Qwen3-1.7B prefill)",
-    }
-    print(f"time flash_attn ({t['at']}): {t}")
-    return t
+    out = {}
+    for name, fn, (b, s, h, hkv, d), dtype, rate, what in (
+            ("flash_attn", flash_attention_tc, (BATCH, SEQ, 16, 8, 128), torch.bfloat16,
+             BF16_FLOPS_PER_S, "Qwen3-1.7B prefill; bf16 tensor cores 989 TFLOP/s"),
+            ("flash_attn_f32", flash_attention_f32, (4, 48, 4, 2, 32), torch.float32,
+             FP32_FLOPS_PER_S, "Qwen3 smoke config; fp32 67 TFLOP/s")):
+        q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        pairs = b * h * s * (s + 1) // 2     # (query, key) pairs the causal mask keeps
+        big = s >= 1024
+        t = {
+            "ms": graph_ms(torch, lambda: fn(q, k, v), iters=10 if big else 50,
+                           replays=3 if big else 10),
+            "eager_ms": eager_ms(torch, lambda: ops.flash_attention(q, k, v),
+                                 iters=10 if big else 50),
+            "plain_ms": eager_ms(torch, lambda: ref.flash_attention_ref(q, k, v),
+                                 iters=3 if big else 20),
+            # the same function in one PyTorch call, on (B, H, S, D) copies made
+            # beforehand; timed as a yardstick, used nowhere in the port
+            "library_ms": graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+                iters=10 if big else 50, replays=3 if big else 10),
+            "bytes": q.element_size() * (2 * q.numel() + 2 * k.numel()),  # q, k, v in, o out
+            "flops": 4 * d * pairs,                    # q.k and p.v, 2 flops a MAC
+            "flops_per_s": rate,
+            "rate": f"{what.split('; ')[1]}, HBM 3.35 TB/s",
+            "at": f"B{b} S{s} H{h} Hkv{hkv} D{d} {str(dtype)[6:]} causal "
+                  f"({what.split('; ')[0]})",
+        }
+        t["tflops_per_s"] = t["flops"] / t["ms"] / 1e9
+        print(f"time {name} ({t['at']}): {t}")
+        out[name] = t
+        del q, k, v, qt, kt, vt
+    return out
 
 
 def serve_qwen3(torch, dev) -> dict:
@@ -228,7 +255,8 @@ def serve_qwen3(torch, dev) -> dict:
     print(f"serve: generate {n_real} x {NEW} tokens in {1e3 * gen_s:.2f} ms "
           f"({n_real * NEW / gen_s:.1f} generated tokens/s), launches {counts}, "
           f"peak device memory {peak / 2**30:.2f} GiB")
-    want = {"lars_update": 0, "ls_xent_fwd": 0, "ls_xent_bwd": 0, "flash_attn": cfg.n_layers}
+    want = {"lars_update": 0, "ls_xent_fwd": 0, "ls_xent_bwd": 0,
+            "flash_attn": cfg.n_layers, "flash_attn_f32": 0}
     if counts != want:
         fail(f"generate launched {counts}, want {want}")
     if len(results) != len(prompts) or any(len(r) != NEW for r in results):
@@ -279,9 +307,10 @@ def serve_qwen3(torch, dev) -> dict:
             "tokens_per_s": n_real * NEW / gen_s, "peak_gib": peak / 2**30}
 
 
-def smoke_card_vs_host(torch) -> None:
+def smoke_card_vs_host(torch) -> int:
     """Qwen3 and Gemma2 smoke configs, fp32 compute, the same weights and
-    prompts on the card and on the host: tokens equal, logits close."""
+    prompts on the card and on the host: tokens equal, logits close.
+    Returns the fp32 flash kernel's launches in the card's prefills."""
     import dataclasses
 
     import numpy as np
@@ -291,6 +320,7 @@ def smoke_card_vs_host(torch) -> None:
     from repro_torch.models import transformer as T
     from repro_torch.serve import decode
 
+    card_launches = 0
     for arch in ("qwen3-1.7b", "gemma2-27b"):
         cfg = dataclasses.replace(registry.get_smoke(arch), compute_dtype=torch.float32)
         host = T.init(cfg, seed=1, device="cpu")
@@ -310,7 +340,7 @@ def smoke_card_vs_host(torch) -> None:
             ops.reset_launch_counts()
             with torch.inference_mode():
                 logits, _ = T.prefill(model, toks, cfg, cache_len=56)
-            launches = ops.launch_counts()["flash_attn"]
+            launches = ops.launch_counts()["flash_attn_f32"]   # fp32 compute
             out = decode.generate(model, toks, cfg, max_new_tokens=8)
             got[dev] = (logits.cpu(), batcher.unpack(out.cpu(), n), launches)
         err = (got["cuda"][0] - got["cpu"][0]).abs()
@@ -323,6 +353,8 @@ def smoke_card_vs_host(torch) -> None:
             fail(f"{arch} smoke: the card disagrees with the host")
         if got["cuda"][2] != cfg.n_layers or got["cpu"][2] != 0:
             fail(f"{arch} smoke: flash launches card {got['cuda'][2]}, host {got['cpu'][2]}")
+        card_launches += got["cuda"][2]
+    return card_launches
 
 
 def main() -> int:
@@ -375,26 +407,29 @@ def main() -> int:
     cfg = resnet.ResNetConfig.resnet50(num_classes=1000, image_size=224)
     model = resnet.init(cfg, seed=0)
     n_params = resnet.num_params(model)
-    lars_shapes = [tuple(p.shape) for n, p in model.named_parameters()
-                   if not lars.is_skip(n, lars.LARSConfig())]
-    print(f"resnet50: {n_params} params, {len(lars_shapes)} LARS leaves")
-    if len(lars_shapes) != 54:
-        fail(f"expected 54 LARS leaves, found {len(lars_shapes)}")
+    lcfg = lars.LARSConfig()
+    named = [(n, tuple(p.shape)) for n, p in model.named_parameters()]
+    is_lars = [not lars.is_skip(n, lcfg) for n, _ in named]
+    print(f"resnet50: {n_params} params, {len(named)} leaves, {sum(is_lars)} of them LARS")
+    if sum(is_lars) != 54 or len(named) != 161:
+        fail(f"expected 161 leaves, 54 of them LARS; found {len(named)}, {sum(is_lars)}")
 
     # -- kernels vs plain versions -------------------------------------------
+    leaves = [(randn(s, 0.05), randn(s, 0.01), randn(s, 1e-3)) for _, s in named]
+    ps, gs, vs = (list(t) for t in zip(*leaves))
     lars_err = 0.0
-    for shape in lars_shapes:
-        p, g, v = randn(shape, 0.05), randn(shape, 0.01), randn(shape, 1e-3)
-        for nesterov in (False, True):
-            pk, vk = ops.lars_update(p, g, v, **LARS_KW, nesterov=nesterov)
-            pr, vr = ref.lars_update_ref(p, g, v, **LARS_KW, nesterov=nesterov)
-            lars_err = max(lars_err, (pk - pr).abs().max().item(),
-                           (vk - vr).abs().max().item())
-    torch.cuda.synchronize()
-    print(f"check lars_update: 54 leaves x nesterov off/on, max_abs_err "
-          f"{lars_err:.3e} (tol {LARS_ATOL:g})")
+    for nesterov in (False, True):
+        before = lars_update_cuda.launches
+        got = ops.lars_update_leaves(ps, gs, vs, is_lars, **LARS_KW, nesterov=nesterov)
+        if lars_update_cuda.launches != before + 2:
+            fail("the multi-tensor LARS step did not take two launches")
+        want = ref.lars_update_leaves_ref(ps, gs, vs, is_lars, **LARS_KW, nesterov=nesterov)
+        for a, b in zip(got[0] + got[1], want[0] + want[1]):
+            lars_err = max(lars_err, (a - b).abs().max().item())
+    print(f"check lars_update: all 161 leaves (54 LARS, 107 skip) in one call x "
+          f"nesterov off/on, max_abs_err {lars_err:.3e} (tol {LARS_ATOL:g})")
     if not lars_err <= LARS_ATOL:
-        fail("lars_update disagrees with lars_update_ref")
+        fail("lars_update disagrees with lars_update_leaves_ref")
 
     xent_cases = [(32, 1000), (64, 1000), (256, 32768)]
     fwd_err = bwd_err = 0.0
@@ -430,36 +465,29 @@ def main() -> int:
     flash_err = check_flash(torch, dev, gen)
 
     # -- timing at the main path's shapes ------------------------------------
-    leaves = [(randn(s, 0.05), randn(s, 0.01), randn(s, 1e-3)) for s in lars_shapes]
-    trusts = [ref.lars_trust(p, g, eta=0.01, weight_decay=5e-5, eps=1e-6)
-              for p, g, _ in leaves]
-    lars_elems = sum(p.numel() for p, _, _ in leaves)
-    lars_kw_k = dict(lr=2.0, mom=0.9, weight_decay=5e-5)
+    lars_elems = sum(p.numel() for p in ps)
+    opt_state = {"momentum": {n: v for (n, _), v in zip(named, vs)}}
+    lars_params = {n: p for (n, _), p in zip(named, ps)}
+    lars_grads = {n: g for (n, _), g in zip(named, gs)}
 
-    def lars_ops():
-        for p, g, v in leaves:
-            ops.lars_update(p, g, v, **LARS_KW)
-
-    def lars_kernel_only():
-        for (p, g, v), t in zip(leaves, trusts):
-            lars_update_cuda(p, g, v, t, **lars_kw_k)
+    def lars_step():
+        lars.update(lars_params, lars_grads, opt_state, lr=LARS_KW["lr"],
+                    momentum=LARS_KW["mom"], cfg=lcfg)
 
     def lars_plain():
-        for p, g, v in leaves:
-            ref.lars_update_ref(p, g, v, **LARS_KW)
+        ref.lars_update_leaves_ref(ps, gs, vs, is_lars, **LARS_KW)
 
     timing = {"lars_update": {
-        "ms": graph_ms(torch, lars_ops, iters=4),
-        "kernel_only_ms": graph_ms(torch, lars_kernel_only, iters=4),
-        "eager_ms": eager_ms(torch, lars_ops, iters=5),
+        "ms": graph_ms(torch, lars_step, iters=4),
+        "eager_ms": eager_ms(torch, lars_step, iters=10),
         "plain_ms": graph_ms(torch, lars_plain, iters=4),
         "library_ms": None,
-        "bytes": 20 * lars_elems,
-        "flops": 6 * lars_elems,       # v' = mom*v + tl*(g + wd*p); p - v'
-        "at": f"all 54 ResNet-50 LARS leaves, {lars_elems} fp32 elements",
+        "bytes": 20 * lars_elems,     # p, g, v in; p', v' out
+        "flops": 6 * lars_elems,      # v' = mom*v + tl*(g + wd*p); p - v'
+        "at": f"one core/lars.update of ResNet-50: all 161 leaves (54 LARS, 107 skip), "
+              f"{lars_elems} fp32 elements",
     }}
-    print(f"time lars_update (one step, 54 leaves, {lars_elems} elements): "
-          f"{timing['lars_update']}")
+    print(f"time lars_update ({timing['lars_update']['at']}): {timing['lars_update']}")
 
     xent_times = {}
     for rows in (32, 64):
@@ -544,8 +572,8 @@ def main() -> int:
             fail(f"non-finite loss at step {row['step']}")
         if row["skipped"]:
             fail(f"step {row['step']} was skipped by the guard")
-    want = {"lars_update": 54 * steps, "ls_xent_fwd": steps, "ls_xent_bwd": steps,
-            "flash_attn": 0}
+    want = {"lars_update": 2 * steps, "ls_xent_fwd": steps, "ls_xent_bwd": steps,
+            "flash_attn": 0, "flash_attn_f32": 0}
     if counts != want:
         fail(f"launch counts {counts}, want {want}")
     for s in plan.stages:
@@ -583,7 +611,7 @@ def main() -> int:
           f"params max_abs_err {p_err:.3e} (tol {TINY_TOL:g})")
     if not (l_err <= TINY_TOL and p_err <= TINY_TOL):
         fail("tiny ResNet on the card disagrees with the host")
-    smoke_card_vs_host(torch)
+    f32_launches = smoke_card_vs_host(torch)
 
     # -- report ---------------------------------------------------------------
     sources = {
@@ -593,14 +621,18 @@ def main() -> int:
                         "src/repro/kernels/ls_xent.py:27", fwd_err),
         "ls_xent_bwd": ("cuda", "src/repro_torch/csrc/ls_xent.cu",
                         "src/repro/kernels/ls_xent.py:27", bwd_err),
-        "flash_attn": ("cuda", "src/repro_torch/csrc/flash_attn.cu",
-                       "src/repro/kernels/flash_attn.py:34", flash_err),
+        "flash_attn": ("cuda", "src/repro_torch/csrc/flash_attn_tc.cu",
+                       "src/repro/kernels/flash_attn.py:34", flash_err["bf16"]),
+        "flash_attn_f32": ("cuda", "src/repro_torch/csrc/flash_attn.cu",
+                           "src/repro/kernels/flash_attn.py:34", flash_err["fp32"]),
     }
     main_rows = plan.stages[-1].global_batch
     measured = {"lars_update": timing["lars_update"], **xent_times[main_rows],
-                "flash_attn": flash_time}
-    # each kernel's launches on its own main path: ResNet training, or serving
-    launches = {**counts, "flash_attn": serve["counts"]["flash_attn"]}
+                **flash_time}
+    # each kernel's launches on its own main path: ResNet training, serving
+    # Qwen3-1.7B in bf16, or the fp32 smoke configs' prefills
+    launches = {**counts, "flash_attn": serve["counts"]["flash_attn"],
+                "flash_attn_f32": f32_launches}
     kernels = []
     for name, (route, src, replaces, err) in sources.items():
         t = measured[name]
@@ -613,7 +645,7 @@ def main() -> int:
             "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
-            **{k: t[k] for k in ("kernel_only_ms", "library_fwd_bwd_ms") if k in t},
+            **{k: t[k] for k in ("tflops_per_s", "library_fwd_bwd_ms") if k in t},
             "rate": t.get("rate", "fp32 67 TFLOP/s, HBM 3.35 TB/s"),
             "at": t["at"],
         })

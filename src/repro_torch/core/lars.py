@@ -13,15 +13,18 @@ with no trust ratio and no weight decay.
 
 Parameters are a dict ``{name: tensor}`` keyed by module path
 (``stages.0.1.conv1.kernel``); ``name.replace(".", "/")`` is the JAX
-package's path string, so the skip tags match the same leaves. The
-elementwise update of every LARS leaf is the CUDA kernel on the card
-(``kernels.ops.lars_update``); the JAX package's ``use_kernel`` switch has no
-counterpart because the device picks the path.
+package's path string, so the skip tags match the same leaves. A step
+updates every leaf, LARS and skip alike, through one call of
+``kernels.ops.lars_update_leaves``: two kernel launches on the card (a skip
+leaf is a LARS leaf with trust 1 and no weight decay), the plain version on
+the host. The JAX package's ``use_kernel`` switch has no counterpart because
+the device picks the path.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -47,6 +50,12 @@ def is_skip(name: str, cfg: LARSConfig) -> bool:
     return any(t in ps for t in cfg.skip_tags)
 
 
+@functools.lru_cache(maxsize=8)
+def _lars_flags(names: tuple[str, ...], cfg: LARSConfig) -> list[bool]:
+    """Which leaves take the trust ratio: one string match a leaf, once a model."""
+    return [not is_skip(n, cfg) for n in names]
+
+
 def init(params: dict[str, torch.Tensor]) -> dict:
     """Momentum buffers, fp32 (master precision) like the params."""
     return {"momentum": {k: torch.zeros(p.shape, dtype=torch.float32,
@@ -62,25 +71,16 @@ def update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
 
     Returns new ``(params, opt_state)`` dicts; the inputs are not modified.
     """
+    names = tuple(params)
     moms = opt_state["momentum"]
-    new_p, new_m = {}, {}
-    for name, p in params.items():
-        g, v = grads[name], moms[name]
-        if is_skip(name, cfg):
-            p32, g32 = p.float(), g.float()
-            v_new = momentum * v + lr * g32
-            step = (momentum * v_new + (v_new - momentum * v)
-                    if cfg.nesterov else v_new)
-            p_out = p32 - step
-        else:
-            p_out, v_new = kops.lars_update(
-                p.float().contiguous(), g.float().contiguous(), v,
-                lr=lr, mom=momentum, eta=cfg.eta,
-                weight_decay=cfg.weight_decay, eps=cfg.eps,
-                nesterov=cfg.nesterov)
-        new_p[name] = p_out.to(p.dtype)
-        new_m[name] = v_new
-    return new_p, {"momentum": new_m}
+    new_p, new_m = kops.lars_update_leaves(
+        # autograd.grad may hand back a conv kernel's gradient in another
+        # memory layout than the kernel; the kernels pair elements by offset
+        [params[n] for n in names], [grads[n].contiguous() for n in names],
+        [moms[n] for n in names], _lars_flags(names, cfg),
+        lr=lr, mom=momentum, eta=cfg.eta, weight_decay=cfg.weight_decay,
+        eps=cfg.eps, nesterov=cfg.nesterov)
+    return dict(zip(names, new_p)), {"momentum": dict(zip(names, new_m))}
 
 
 # -- plain momentum-SGD baseline (the no-LARS ablation) ----------------------

@@ -8,7 +8,9 @@
 //   s_ij = softcap * tanh(s_ij / softcap)            (when softcap > 0)
 //   keep j iff j < Skv, j <= i (causal), j > i - window (window >= 0)
 //   o_i  = sum_j exp(s_ij - m_i) v_j / max(sum_j exp(s_ij - m_i), 1e-30)
-// Inputs fp32 or bf16, math fp32, output in the inputs' dtype.
+// fp32 in, math and out. bf16 inputs go to csrc/flash_attn_tc.cu, the
+// tensor-core kernel: on the tensor cores fp32 would be TF32, which misses
+// the fp32 tolerance, so this kernel stays for fp32 (the smoke configs).
 //
 // Differences from the TPU kernel, none of which changes a result the model
 // can see: keys at j >= Skv are always masked (the JAX wrapper pads k/v with
@@ -20,9 +22,8 @@
 //
 // Bound: at the prefill shapes the work is 4*S*Skv*D flops a (batch, head)
 // pair (halved by the causal mask) against 2*(S+Skv)*D elements moved, so
-// it is bound by operations. This first version does them as fp32 FMAs on
-// the CUDA cores, as the TPU kernel's fp32 math does: 67 TFLOP/s at best,
-// against 989 for bf16 on the tensor cores (mma/wgmma is later work).
+// it is bound by operations. It does them as fp32 FMAs on the CUDA cores, as
+// the TPU kernel's fp32 math does: 67 TFLOP/s at best.
 //
 // Design: the TPU grid walks k-blocks in sequence and carries (m, l, acc) in
 // VMEM scratch between grid steps. Here one CTA owns one (batch, head,
@@ -36,7 +37,6 @@
 // repeating k and v in memory. Query blocks are issued last-first so the
 // causal mask's longest rows start first.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -51,15 +51,6 @@ __device__ __forceinline__ void to_f(const float4& raw, float* out) {
   out[2] = raw.z;
   out[3] = raw.w;
 }
-__device__ __forceinline__ void to_f(const uint4& raw, float* out) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
 
 template <typename T>
 struct Vec;  // one 16-byte load of T
@@ -68,16 +59,8 @@ struct Vec<float> {
   using type = float4;
   static constexpr int n = 4;
 };
-template <>
-struct Vec<__nv_bfloat16> {
-  using type = uint4;
-  static constexpr int n = 8;
-};
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // rows x D elements of T at src (row stride in elements) -> fp32 smem rows
 // of stride ld, times mul; rows at or past `valid` are zero.
@@ -326,24 +309,18 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// q, o: (B, S, H, D); k, v: (B, Skv, Hkv, D); all contiguous, 16-byte
-// aligned, of one dtype (0 = fp32, 1 = bf16). H % Hkv == 0, D in
-// {32, 64, 128, 256}. window < 0: no window; softcap <= 0: no softcap.
+// q, o: (B, S, H, D); k, v: (B, Skv, Hkv, D); all fp32, contiguous, 16-byte
+// aligned. H % Hkv == 0, D in {32, 64, 128, 256}. window < 0: no window;
+// softcap <= 0: no softcap.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* o, int dtype, int batch, int heads,
+                              void* o, int batch, int heads,
                               int kv_heads, int seq_q, int seq_kv,
                               int head_dim, float scale, int causal,
                               int window, float softcap, void* stream) {
   if (batch <= 0 || seq_q <= 0) return 0;
   if (kv_heads <= 0 || heads % kv_heads != 0 || seq_kv <= 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_d<float>(q, k, v, o, batch, heads, kv_heads, seq_q, seq_kv,
-                           head_dim, scale, causal, window, softcap, st);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, o, batch, heads, kv_heads, seq_q,
-                                   seq_kv, head_dim, scale, causal, window,
-                                   softcap, st);
-  return (int)cudaErrorInvalidValue;
+  return launch_d<float>(q, k, v, o, batch, heads, kv_heads, seq_q, seq_kv,
+                         head_dim, scale, causal, window, softcap,
+                         (cudaStream_t)stream);
 }

@@ -1,0 +1,641 @@
+// Flash-attention forward for bf16 on Hopper's tensor cores (sm_90a):
+// softmax(mask(softcap(q*scale . k^T))) . v with an online softmax, so the
+// (S, Skv) logits never reach device memory.
+//
+// Replaces: src/repro/kernels/flash_attn.py::_flash_kernel (the Pallas TPU
+// kernel behind flash_attention_hsd / flash_attention) for bf16 inputs; fp32
+// inputs keep csrc/flash_attn.cu. It computes what kernels/ref.py::
+// flash_attention_ref computes: per query row i and key j, positions from 0,
+//   s_ij = (q_i . k_j) * scale                       (fp32 accumulation)
+//   s_ij = softcap * tanh(s_ij / softcap)            (when softcap > 0)
+//   keep j iff j < Skv, j <= i (causal), j > i - window (window >= 0)
+//   o_i  = sum_j exp(s_ij - m_i) v_j / sum_j exp(s_ij - m_i)
+// with one difference every tensor-core flash kernel has: the probabilities
+// are rounded to bf16 before p . v (their sum stays fp32), so a result is
+// held to |got - want| <= 1e-5 + 2^-7 |want| + 2^-8 (P . |v|).
+//
+// Bound: 4 * D flops a kept (query, key) pair against 2 * (S + 2 Skv + S) * D
+// bytes a (batch, head): at the prefill shapes hundreds of flops a byte, so
+// bound by the bf16 tensor-core rate (989 TFLOP/s dense on an H100 SXM).
+//
+// Design:
+// - One CTA of two consumer warpgroups owns one (batch, head, 128-query
+//   block); each warpgroup owns 64 query rows, the M of one wgmma.
+//   blockIdx.y counts the query blocks from the last and blockIdx.x the
+//   (batch, head) pairs, so the causal mask's longest rows start first and
+//   the CTAs in flight together have work of like length (faster on the
+//   H100 than running a head's query blocks side by side).
+// - Q (128 x D) and a ring of K/V stages (BN x D each; three up to D 128,
+//   two at D 256) live in shared memory as bf16, in the canonical GMMA
+//   layout with a 128-byte swizzle (64-byte for D = 32): atoms of 8 rows x
+//   W bytes, 16-byte chunk c of row r at c ^ (r % 8). TMA writes exactly
+//   that layout: one thread issues a box a swizzle atom (4-d tensor maps
+//   over (d, head, row, batch)), an mbarrier a stage counts the bytes in,
+//   and rows past S or Skv arrive as zeros. Loads run ahead by kStages - 1
+//   tiles while the warps compute, and no warp spends time issuing them (a
+//   cp.async version, every thread issuing 16-byte copies, was slower).
+// - S = Q . K^T is wgmma m64nBNk16 with both operands from shared memory
+//   (K-major); O += P . V is wgmma m64nDk16 with P from registers (the RS
+//   form: the S accumulator's layout is the A fragment's, so P never goes
+//   back to shared memory) and V from shared memory read MN-major.
+// - The two warpgroups take turns on the tensor cores (named barriers):
+//   the issue order is S0 S1 PV0 PV1, so one warpgroup's softmax runs
+//   beside the other's product.
+// - The softmax keeps each row's max and sum in fp32 registers in the log2
+//   domain (log2(e) folded into the scale, ex2.approx), rescales O only when
+//   the max moved, and masks only the blocks that cross the diagonal, the
+//   window's edge or Skv. k-blocks wholly outside the band are not visited.
+//   The softcap is a template argument, so the common case pays nothing.
+// - GQA reads kv head h / (H / Hkv); nothing is repeated in memory.
+// - The output goes through shared memory (Q's space) so the stores to
+//   device memory are 16-byte and coalesced.
+
+#include <cuda.h>   // CUtensorMap and its enums; the encoder comes from the runtime
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;   // two warpgroups
+constexpr int kBM = 128;        // query rows a CTA, 64 a warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Cfg {
+  static constexpr int W = D >= 64 ? 128 : 64;    // swizzle width: bytes a row of an atom
+  static constexpr int kLayout = W == 128 ? 1 : 2;  // descriptor layout: B128 or B64
+  static constexpr int BN = D >= 256 ? 64 : 128;  // keys a tile
+  static constexpr int kQBytes = kBM * D * 2;
+  static constexpr int kKVBytes = BN * D * 2;
+  static constexpr int kStages = D >= 256 ? 2 : 3;  // K/V ring (smem: 3 fit up to D 128)
+  static constexpr size_t kSmem = kQBytes + 2 * kStages * kKVBytes + 1024;  // + alignment
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk c (along D) of row r in an R x D bf16 tile
+// laid out as [D / (W/2) atoms][R rows][W bytes] and swizzled as the
+// hardware's Swizzle<log2(W/16), 4, 3>: bits 7.. of the offset XOR bits 4...
+template <int D, int R>
+__device__ __forceinline__ uint32_t tile_offset(int r, int c) {
+  constexpr int W = Cfg<D>::W, per = W / 16;
+  const uint32_t lin = (c / per) * (R * W) + r * W + (c % per) * 16;
+  return lin ^ ((lin >> 3) & (W - 16));
+}
+
+// mbarrier: one a stage, completed by the bytes its TMA copies deliver
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// TMA: one box of a 4-d tensor map, (d, head, row, batch), into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int head, int row,
+                                         int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(head),
+      "r"(row), "r"(batch)
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Named barriers 1 and 2 hand the tensor cores back and forth between the
+// two warpgroups: each waits for its turn (bar.sync of 256 threads: its own
+// 128 plus the other warpgroup's 128 arrivals), issues its wgmmas and
+// passes the turn on (bar.arrive), so one warpgroup's product runs while
+// the other does its softmax.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+}
+// keep the compiler from touching accumulators across an async wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor: start, leading and stride byte
+// offsets (16-byte units), layout type in bits 62-63 (base offset 0: every
+// atom starts 1024-byte aligned).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int layout) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+
+// d (64 x N fp32, N/2 a thread) (+)= A (64 x 16, smem, K-major) . B (16 x N,
+// smem, K-major); scale_d = 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d);
+// d (64 x N fp32) += A (64 x 16 bf16, registers) . B (16 x N, smem, MN-major).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", {%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+      ", {%128, %129, %130, %131}, %132, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// 2^x in one MUFU instruction; x <= 0 here, and a result below 2^-126
+// flushes to 0, which the fp32 sums cannot see
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&t);
+}
+
+template <int D, bool kSoftcap>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    bf16* __restrict__ o, int H, int Hkv, int S, int Skv,
+                    float scale_log2, float cap_in, float cap_out, int causal,
+                    int window) {
+  using C = Cfg<D>;
+  constexpr int W = C::W, BN = C::BN, L = C::kLayout, AC = W / 2;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[C::kStages];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t sq = base;
+  const uint32_t sk = sq + C::kQBytes;
+  const uint32_t sv = sk + C::kStages * C::kKVBytes;
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32,
+            lane = tid % 32;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;
+  const long long q_stride = (long long)H * D;
+
+  // the k-blocks some row of this CTA may attend
+  const int k_end = causal ? min(Skv, q0 + kBM) : Skv;
+  const int k_begin = window >= 0 ? max(0, q0 - window + 1) : 0;
+  const int kb0 = k_begin / BN, kb1 = (k_end + BN - 1) / BN;
+
+  // K/V tile kb goes to stage (kb - kb0) % kStages and completes its
+  // stage's barrier; Q rides with the first tile. One thread issues the
+  // copies (one box an atom column); TMA zero-fills rows past S or Skv.
+  auto load_kv = [&](int kb) {
+    if (tid != 0 || kb >= kb1) return;
+    const int st = (kb - kb0) % C::kStages, k0 = kb * BN;
+    const uint32_t bar = smem_u32(&full[st]);
+    mbar_expect_tx(bar, 2 * C::kKVBytes + (kb == kb0 ? C::kQBytes : 0));
+    if (kb == kb0)
+#pragma unroll
+      for (int a = 0; a < D / AC; ++a)
+        tma_load(sq + a * (kBM * W), &tq, bar, a * AC, h, q0, b);
+#pragma unroll
+    for (int a = 0; a < D / AC; ++a) {
+      tma_load(sk + st * C::kKVBytes + a * (BN * W), &tk, bar, a * AC, hk, k0, b);
+      tma_load(sv + st * C::kKVBytes + a * (BN * W), &tv, bar, a * AC, hk, k0, b);
+    }
+  };
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < C::kStages; ++i) mbar_init(smem_u32(&full[i]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < C::kStages - 1; ++i) load_kv(kb0 + i);
+
+  // this thread's two rows of the accumulators (wgmma's C layout: warp w of
+  // the warpgroup holds rows 16w..16w+15; lane l rows l/4 and l/4 + 8 and
+  // columns 8j + 2(l%4) + {0, 1})
+  const int row_lo = q0 + 64 * wg + 16 * warp + lane / 4, row_hi = row_lo + 8;
+  const int col_in = 2 * (lane % 4);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+
+  // issue order of the products: S0 S1 PV0 PV1, block after block; warpgroup
+  // 1 hands warpgroup 0 the first turn, and keeps its last pass
+  if (wg == 1 && kb0 < kb1) turn_pass(1);
+  for (int kb = kb0; kb < kb1; ++kb) {
+    const int st = (kb - kb0) % C::kStages;
+    const int k0 = kb * BN;
+    mbar_wait(smem_u32(&full[st]), ((kb - kb0) / C::kStages) & 1);   // tile kb landed
+    __syncthreads();   // every thread is done with tile kb - 1's stage
+    load_kv(kb + C::kStages - 1);
+
+    // S = Q . K^T: D/16 steps of k16, both operands K-major
+    float s[BN / 2];
+    turn_wait(wg);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a_off = (kk * 32 / W) * (kBM * W) + (kk * 32) % W;
+      const uint32_t b_off = (kk * 32 / W) * (BN * W) + (kk * 32) % W;
+      wgmma_ss<BN>(s, make_desc(sq + a_off + wg * 64 * W, 16, 8 * W, L),
+                   make_desc(sk + st * C::kKVBytes + b_off, 16, 8 * W, L),
+                   kk > 0);
+    }
+    wgmma_commit();
+    turn_pass(wg);
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // scale (log2 domain) and softcap; the softcap is a template argument
+    // and the mask a loop of its own, so the common block pays for neither
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i)
+      s[i] = kSoftcap ? cap_out * tanhf(s[i] * cap_in) : s[i] * scale_log2;
+    // mask only the blocks that cross the diagonal, the window's edge or Skv
+    if (k0 + BN > Skv || (causal && k0 + BN - 1 > q0) ||
+        (window >= 0 && k0 <= q0 + kBM - 1 - window)) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int row = (i & 2) ? row_hi : row_lo;
+        const int col = k0 + 8 * (i / 4) + col_in + (i & 1);
+        const bool keep = col < Skv && (!causal || col <= row) &&
+                          (window < 0 || col > row - window);
+        if (!keep) s[i] = -INFINITY;
+      }
+    }
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      if (i & 2) mx_hi = fmaxf(mx_hi, s[i]);
+      else mx_lo = fmaxf(mx_lo, s[i]);
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+    }
+    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+    // a row with no key yet keeps max -inf; exponents then use 0, giving p = 0
+    const float mu_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
+    const float mu_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
+    if (mn_lo != m_lo) {
+      const float alpha = ex2(m_lo - mu_lo);
+      l_lo *= alpha;
+#pragma unroll
+      for (int i = 0; i < D / 2; i += 4) {
+        acc[i] *= alpha;
+        acc[i + 1] *= alpha;
+      }
+    }
+    if (mn_hi != m_hi) {
+      const float alpha = ex2(m_hi - mu_hi);
+      l_hi *= alpha;
+#pragma unroll
+      for (int i = 0; i < D / 2; i += 4) {
+        acc[i + 2] *= alpha;
+        acc[i + 3] *= alpha;
+      }
+    }
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+
+    // p = exp2(x - m); the A fragment of k16 step kk is S columns 16kk..+15
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      float p[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        p[e] = ex2(s[8 * kk + e] - ((e & 2) ? mu_hi : mu_lo));
+        if (e & 2) l_hi += p[e];
+        else l_lo += p[e];
+      }
+      pa[kk][0] = pack_bf16(p[0], p[1]);
+      pa[kk][1] = pack_bf16(p[2], p[3]);
+      pa[kk][2] = pack_bf16(p[4], p[5]);
+      pa[kk][3] = pack_bf16(p[6], p[7]);
+    }
+
+    // O += P . V: BN/16 steps of k16 (16 keys), V read MN-major
+    turn_wait(wg);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs<D>(acc, pa[kk],
+                  make_desc(sv + st * C::kKVBytes + kk * 16 * W, BN * W, 8 * W, L));
+    wgmma_commit();
+    if (wg == 0 || kb + 1 < kb1) turn_pass(wg);
+    wgmma_wait_all();
+    fence_regs(acc);
+  }
+
+  // the row sums are spread over the 4 lanes of a quad
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;
+  const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
+  // each warpgroup writes its own 64 rows of Q's tile, which only its own
+  // wgmmas read, then the CTA stores the tile with 16-byte stores
+  const int r_lo = row_lo - q0, r_hi = r_lo + 8;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const uint32_t in = (lane % 4) * 4;
+    *reinterpret_cast<uint32_t*>(smem + tile_offset<D, kBM>(r_lo, j) + in) =
+        pack_bf16(acc[4 * j] * inv_lo, acc[4 * j + 1] * inv_lo);
+    *reinterpret_cast<uint32_t*>(smem + tile_offset<D, kBM>(r_hi, j) + in) =
+        pack_bf16(acc[4 * j + 2] * inv_hi, acc[4 * j + 3] * inv_hi);
+  }
+  __syncthreads();
+  constexpr int CH = D / 8;
+  bf16* op = o + ((long long)b * S + q0) * q_stride + (long long)h * D;
+#pragma unroll
+  for (int i = tid; i < kBM * CH; i += kThreads) {
+    const int r = i / CH, c = i % CH;
+    if (q0 + r < S)
+      *reinterpret_cast<uint4*>(op + r * q_stride + c * 8) =
+          *reinterpret_cast<const uint4*>(smem + tile_offset<D, kBM>(r, c));
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so nothing links libcuda
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (B, rows, heads, D) bf16 as a 4-d map, (d, head, row, batch) innermost
+// first, cut into boxes of one swizzle atom: AC columns x box_rows rows.
+template <int D>
+bool make_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
+              int box_rows) {
+  constexpr int AC = Cfg<D>::W / 2;
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)rows * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)AC, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             Cfg<D>::W == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool kSoftcap>
+int launch_cap(const void* q, const void* k, const void* v, void* o, int B,
+               int H, int Hkv, int S, int Skv, float scale, int causal,
+               int window, float softcap, cudaStream_t st) {
+  constexpr size_t smem = Cfg<D>::kSmem;
+  static bool configured = false;   // the attribute is per kernel, set once
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_tc_kernel<D, kSoftcap>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  CUtensorMap tq, tk, tv;
+  if (!make_map<D>(&tq, q, B, S, H, kBM) ||
+      !make_map<D>(&tk, k, B, Skv, Hkv, Cfg<D>::BN) ||
+      !make_map<D>(&tv, v, B, Skv, Hkv, Cfg<D>::BN))
+    return (int)cudaErrorInvalidValue;
+  const float cap_in = kSoftcap ? scale / softcap : 0.f;
+  const float cap_out = kSoftcap ? softcap * kLog2e : 0.f;
+  const dim3 grid(B * H, (S + kBM - 1) / kBM);
+  flash_tc_kernel<D, kSoftcap><<<grid, kThreads, smem, st>>>(
+      tq, tk, tv, (bf16*)o, H, Hkv, S, Skv, scale * kLog2e, cap_in, cap_out,
+      causal, window);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+           int Hkv, int S, int Skv, float scale, int causal, int window,
+           float softcap, cudaStream_t st) {
+  return softcap > 0.f
+             ? launch_cap<D, true>(q, k, v, o, B, H, Hkv, S, Skv, scale, causal,
+                                   window, softcap, st)
+             : launch_cap<D, false>(q, k, v, o, B, H, Hkv, S, Skv, scale,
+                                    causal, window, softcap, st);
+}
+
+}  // namespace
+
+// q, o: (B, S, H, D); k, v: (B, Skv, Hkv, D); bf16, contiguous, 16-byte
+// aligned. H % Hkv == 0, D in {32, 64, 128, 256}. window < 0: no window;
+// softcap <= 0: no softcap.
+extern "C" int flash_attn_tc_fwd(const void* q, const void* k, const void* v,
+                                 void* o, int batch, int heads, int kv_heads,
+                                 int seq_q, int seq_kv, int head_dim,
+                                 float scale, int causal, int window,
+                                 float softcap, void* stream) {
+  if (batch <= 0 || seq_q <= 0) return 0;
+  if (kv_heads <= 0 || heads % kv_heads != 0 || seq_kv <= 0 ||
+      (seq_q + kBM - 1) / kBM > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (head_dim) {
+    case 32:
+      return launch<32>(q, k, v, o, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
+    case 64:
+      return launch<64>(q, k, v, o, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
+    case 128:
+      return launch<128>(q, k, v, o, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
+    case 256:
+      return launch<256>(q, k, v, o, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

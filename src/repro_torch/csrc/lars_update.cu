@@ -1,63 +1,219 @@
-// Fused LARS elementwise update for one fp32 parameter tensor.
+// LARS step over every leaf of a model in two launches: the norms, then the
+// update.
 //
 // Replaces: src/repro/kernels/lars_update.py::_lars_kernel (the Pallas TPU
-// kernel behind lars_update_pallas), and adds the nesterov branch that the
-// JAX kernel path skips, so the port has one path that computes what
-// core/lars.py::update(use_kernel=False) computes.
-//
-//   v' = mom * v + trust_lr * (g + wd * p)
-//   s  = nesterov ? mom * v' + (v' - mom * v) : v'
-//   p' = p - s
+// kernel behind lars_update_pallas, one leaf a call, its trust ratio computed
+// outside), and the per-leaf loop of core/lars.py::update around it. Per leaf
+// with LARS (core/lars.py::is_skip false):
+//   trust = eta*||p|| / (||g|| + wd*||p|| + eps), or 1 when a norm is 0
+//   v'    = mom * v + trust * lr * (g + wd * p)
+//   s     = nesterov ? mom * v' + (v' - mom * v) : v'
+//   p'    = p - s
+// and per skip leaf (BN, biases) the same with trust 1 and wd 0, which is
+// plain momentum SGD. All fp32.
 //
 // Bound: device-memory bytes. Each element reads p, g, v and writes p', v'
-// (20 bytes, 5-8 flops), far below the H100's ~295 flops per byte, so the
-// least time is 20 * n / 3.35 TB/s.
+// (20 bytes, a handful of flops), far below the H100's ~295 flops per byte,
+// so the least time is 20 * n / 3.35 TB/s. The norm pass reads p and g a
+// second time (8 bytes an element more): the price of computing each
+// leaf's norms before any block of it updates, without float atomics.
 //
-// Design: a grid-stride loop, one element per thread per iteration, with
-// neighbouring threads on neighbouring addresses so every warp load and
-// store is coalesced. The trust ratio is read from a device pointer (the
-// TPU kernel read it from its (4,) scalar operand): it is computed on the
-// device from the two norms and never goes through the host, so a step
-// over 54 leaves costs no host synchronisation. lr, mom and wd are host
-// values and come by value. The kernel allocates nothing and launches on
-// the caller's stream.
+// Design: a table of the leaves (pointers, sizes, the LARS-or-skip flag,
+// the offset into the flat outputs, the first block of each leaf) goes by
+// value in the kernel parameters (__grid_constant__, up to 32,764 bytes on
+// CUDA 12.1+), so no host-to-device copy precedes a launch. Block b owns a
+// fixed chunk of one leaf, found by a binary search of the table.
+// - lars_norms_kernel: each block of a LARS leaf sums p^2 and g^2 over its
+//   chunk and writes the two partial sums to slot b of a scratch buffer.
+// - lars_apply_kernel: each block of a LARS leaf first sums its leaf's
+//   partials (warp 0, a fixed order), computes the trust ratio, then updates
+//   its chunk; a skip leaf's block goes straight to the update.
+// Every sum runs in a fixed order and nothing uses atomics, so a step's
+// result repeats bit for bit. Loads and stores are 16 bytes a thread where
+// a leaf's pointers allow it. The kernels allocate nothing and launch on the
+// caller's stream; the wrapper (kernels/lars_update.py) owns the buffers.
 
 #include <cuda_runtime.h>
+#include <string.h>
 
 namespace {
 
-__global__ void lars_update_kernel(const float* __restrict__ p,
-                                   const float* __restrict__ g,
-                                   const float* __restrict__ v,
-                                   float* __restrict__ p_out,
-                                   float* __restrict__ v_out,
-                                   const float* __restrict__ trust,
-                                   float lr, float mom, float wd,
-                                   long long n, int nesterov) {
-  const float tl = trust[0] * lr;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float pi = p[i];
-    const float vi = v[i];
-    const float v_new = mom * vi + tl * (g[i] + wd * pi);
-    const float step = nesterov ? mom * v_new + (v_new - mom * vi) : v_new;
-    p_out[i] = pi - step;
-    v_out[i] = v_new;
+constexpr int kThreads = 256;
+constexpr int kMaxLeaves = 512;   // leaves a launch; the wrapper splits beyond
+
+struct LarsTable {
+  const float* p[kMaxLeaves];
+  const float* g[kMaxLeaves];
+  const float* v[kMaxLeaves];
+  long long off[kMaxLeaves];      // the leaf's offset in the flat p', v'
+  int n[kMaxLeaves];              // its elements
+  int chunk0[kMaxLeaves + 1];     // its first block; chunk0[n_leaves] = blocks
+  int lars[kMaxLeaves];           // 1: trust ratio and weight decay; 0: skip
+  int n_leaves;
+  int chunk;                      // elements a block, a multiple of 4
+};
+
+// the leaf that owns block b: the last i with chunk0[i] <= b
+__device__ __forceinline__ int find_leaf(const LarsTable& t, int b) {
+  int lo = 0, hi = t.n_leaves - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (t.chunk0[mid] <= b) lo = mid;
+    else hi = mid - 1;
   }
+  return lo;
+}
+
+__device__ __forceinline__ bool aligned16(const void* a) {
+  return (reinterpret_cast<unsigned long long>(a) & 15) == 0;
+}
+
+// sum over the block in a fixed order; the result lands in every thread
+__device__ __forceinline__ float block_sum(float x, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  __syncthreads();   // red is free
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) s += red[w];
+  return s;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    lars_norms_kernel(const __grid_constant__ LarsTable t,
+                      float* __restrict__ partial) {
+  __shared__ float red[kThreads / 32];
+  const int i = find_leaf(t, blockIdx.x);
+  if (!t.lars[i]) return;   // skip leaves need no norms
+  const long long start = (long long)(blockIdx.x - t.chunk0[i]) * t.chunk;
+  const int len = (int)min((long long)t.chunk, t.n[i] - start);
+  const float* p = t.p[i] + start;
+  const float* g = t.g[i] + start;
+  float sp = 0.f, sg = 0.f;
+  int done = 0;
+  if (aligned16(p) && aligned16(g)) {
+    const float4* p4 = reinterpret_cast<const float4*>(p);
+    const float4* g4 = reinterpret_cast<const float4*>(g);
+    for (int j = threadIdx.x; j < len / 4; j += kThreads) {
+      const float4 a = p4[j], b = g4[j];
+      sp += a.x * a.x + a.y * a.y + a.z * a.z + a.w * a.w;
+      sg += b.x * b.x + b.y * b.y + b.z * b.z + b.w * b.w;
+    }
+    done = len / 4 * 4;
+  }
+  for (int j = done + threadIdx.x; j < len; j += kThreads) {
+    sp += p[j] * p[j];
+    sg += g[j] * g[j];
+  }
+  sp = block_sum(sp, red);
+  sg = block_sum(sg, red);
+  if (threadIdx.x == 0) {
+    partial[2 * blockIdx.x] = sp;
+    partial[2 * blockIdx.x + 1] = sg;
+  }
+}
+
+__device__ __forceinline__ void step(float p, float g, float v, float tl,
+                                     float wd, float mom, int nesterov,
+                                     float& p_new, float& v_new) {
+  v_new = mom * v + tl * (g + wd * p);
+  p_new = p - (nesterov ? mom * v_new + (v_new - mom * v) : v_new);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    lars_apply_kernel(const __grid_constant__ LarsTable t,
+                      const float* __restrict__ partial,
+                      float* __restrict__ p_out, float* __restrict__ v_out,
+                      float lr, float mom, float eta, float wd, float eps,
+                      int nesterov) {
+  __shared__ float norms[2];
+  const int i = find_leaf(t, blockIdx.x);
+  float tl = lr, wdl = 0.f;   // skip leaf: trust 1, no weight decay
+  if (t.lars[i]) {
+    if (threadIdx.x < 32) {
+      float sp = 0.f, sg = 0.f;
+      for (int c = t.chunk0[i] + threadIdx.x; c < t.chunk0[i + 1]; c += 32) {
+        sp += partial[2 * c];
+        sg += partial[2 * c + 1];
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        sp += __shfl_xor_sync(0xffffffffu, sp, off);
+        sg += __shfl_xor_sync(0xffffffffu, sg, off);
+      }
+      if (threadIdx.x == 0) {
+        norms[0] = sqrtf(sp);
+        norms[1] = sqrtf(sg);
+      }
+    }
+    __syncthreads();
+    const float w = norms[0], gn = norms[1];
+    const float trust = (w > 0.f && gn > 0.f) ? eta * w / (gn + wd * w + eps) : 1.f;
+    tl = trust * lr;
+    wdl = wd;
+  }
+  const long long start = (long long)(blockIdx.x - t.chunk0[i]) * t.chunk;
+  const int len = (int)min((long long)t.chunk, t.n[i] - start);
+  const float* p = t.p[i] + start;
+  const float* g = t.g[i] + start;
+  const float* v = t.v[i] + start;
+  float* po = p_out + t.off[i] + start;
+  float* vo = v_out + t.off[i] + start;
+  int done = 0;
+  if (aligned16(p) && aligned16(g) && aligned16(v) && aligned16(po) &&
+      aligned16(vo)) {
+    for (int j = threadIdx.x; j < len / 4; j += kThreads) {
+      const float4 a = reinterpret_cast<const float4*>(p)[j];
+      const float4 b = reinterpret_cast<const float4*>(g)[j];
+      const float4 c = reinterpret_cast<const float4*>(v)[j];
+      float4 pn, vn;
+      step(a.x, b.x, c.x, tl, wdl, mom, nesterov, pn.x, vn.x);
+      step(a.y, b.y, c.y, tl, wdl, mom, nesterov, pn.y, vn.y);
+      step(a.z, b.z, c.z, tl, wdl, mom, nesterov, pn.z, vn.z);
+      step(a.w, b.w, c.w, tl, wdl, mom, nesterov, pn.w, vn.w);
+      reinterpret_cast<float4*>(po)[j] = pn;
+      reinterpret_cast<float4*>(vo)[j] = vn;
+    }
+    done = len / 4 * 4;
+  }
+  for (int j = done + threadIdx.x; j < len; j += kThreads)
+    step(p[j], g[j], v[j], tl, wdl, mom, nesterov, po[j], vo[j]);
+}
+
+bool table_ok(const LarsTable& t, int blocks) {
+  return t.n_leaves > 0 && t.n_leaves <= kMaxLeaves && t.chunk > 0 &&
+         t.chunk % 4 == 0 && blocks == t.chunk0[t.n_leaves];
 }
 
 }  // namespace
 
-extern "C" int lars_update_f32(const float* p, const float* g, const float* v,
-                               float* p_out, float* v_out, const float* trust,
-                               float lr, float mom, float wd, long long n,
-                               int nesterov, void* stream) {
-  if (n <= 0) return 0;
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > 132 * 16) blocks = 132 * 16;  // 16 blocks per SM, then stride
-  lars_update_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      p, g, v, p_out, v_out, trust, lr, mom, wd, n, nesterov);
+// 0 when the caller's table has this file's layout (its size in bytes).
+extern "C" int lars_table_check(long long bytes) {
+  return bytes == (long long)sizeof(LarsTable) ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// table: a host LarsTable, copied into the launch's parameters; partial:
+// 2 * blocks fp32 of scratch on the device.
+extern "C" int lars_norms_f32(const void* table, float* partial, int blocks,
+                              void* stream) {
+  LarsTable t;
+  memcpy(&t, table, sizeof t);
+  if (!table_ok(t, blocks)) return (int)cudaErrorInvalidValue;
+  lars_norms_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(t, partial);
+  return (int)cudaGetLastError();
+}
+
+// p_out, v_out: the flat outputs, each leaf at its table offset.
+extern "C" int lars_apply_f32(const void* table, const float* partial,
+                              float* p_out, float* v_out, int blocks, float lr,
+                              float mom, float eta, float wd, float eps,
+                              int nesterov, void* stream) {
+  LarsTable t;
+  memcpy(&t, table, sizeof t);
+  if (!table_ok(t, blocks)) return (int)cudaErrorInvalidValue;
+  lars_apply_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      t, partial, p_out, v_out, lr, mom, eta, wd, eps, nesterov);
   return (int)cudaGetLastError();
 }

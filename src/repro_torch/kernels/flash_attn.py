@@ -1,13 +1,16 @@
-"""Wrapper of the flash-attention forward kernel (``csrc/flash_attn.cu``).
+"""Wrappers of the flash-attention forward kernels.
 
-Replaces ``repro/kernels/flash_attn.py`` (Pallas). The JAX wrapper pads S
-and Skv to 128, folds (B, H) and repeats the kv heads in memory; the CUDA
-kernel takes the (B, S, H, D) layout as it is, masks the ragged edge itself
-and reads kv head ``h // (H // Hkv)`` in place of a repeat, so this wrapper
-only checks and launches.
+Replace ``repro/kernels/flash_attn.py`` (Pallas). Two kernels, picked by
+dtype with no fallback between them: bf16 goes to ``csrc/flash_attn_tc.cu``
+(wgmma on the tensor cores, P rounded to bf16 before P . V), fp32 to
+``csrc/flash_attn.cu`` (fp32 FMAs; on the tensor cores fp32 would be TF32).
+The JAX wrapper pads S and Skv to 128, folds (B, H) and repeats the kv heads
+in memory; both kernels take the (B, S, H, D) layout as it is, mask the
+ragged edge themselves and read kv head ``h // (H // Hkv)`` in place of a
+repeat, so these wrappers only check and launch.
 
-The kernel is a forward only: there is no backward kernel yet, so the
-wrapper refuses inputs that autograd tracks rather than return an output
+Both kernels are forwards only: there is no backward kernel yet, so the
+wrappers refuse inputs that autograd tracks rather than return an output
 with no gradient. Training through it waits for a later slice.
 """
 
@@ -17,7 +20,6 @@ import torch
 
 from repro_torch.kernels import build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)
 
 
@@ -40,44 +42,73 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          scale: float | None = None) -> torch.Tensor:
     """Attention forward on the card; returns (B, S, H, D) in q's dtype.
 
-    q: (B, S, H, D); k/v: (B, Skv, Hkv, D) with H % Hkv == 0; one dtype
-    (fp32 or bf16), contiguous, on one CUDA device.
+    q: (B, S, H, D); k/v: (B, Skv, Hkv, D) with H % Hkv == 0; one dtype,
+    contiguous, on one CUDA device. bf16 launches the tensor-core kernel,
+    fp32 the fp32 kernel; any other dtype raises.
     """
+    if q.dtype == torch.bfloat16:
+        return flash_attention_tc(q, k, v, causal=causal, window=window,
+                                  softcap=softcap, scale=scale)
+    if q.dtype == torch.float32:
+        return flash_attention_f32(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale)
+    raise TypeError(f"flash_attention_cuda: q must be float32 or bfloat16, got {q.dtype}")
+
+
+def _launch(fn_name: str, dtype: torch.dtype, q, k, v, causal, window, softcap,
+            scale) -> torch.Tensor:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"flash_attention_cuda: {name} must be on one CUDA "
+            raise ValueError(f"{fn_name}: {name} must be on one CUDA "
                              f"device with q, got {t.device}")
-        if t.dtype not in _DTYPES or t.dtype != q.dtype:
-            raise TypeError(f"flash_attention_cuda: q, k, v must share float32 "
-                            f"or bfloat16, got {name} {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{fn_name}: q, k, v must be {dtype}, got {name} {t.dtype}")
         if t.dim() != 4 or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention_cuda: {name} must be a contiguous, "
+            raise ValueError(f"{fn_name}: {name} must be a contiguous, "
                              f"16-byte aligned 4-d tensor")
     B, S, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if k.shape != (B, Skv, Hkv, D) or v.shape != k.shape or H % Hkv:
-        raise ValueError(f"flash_attention_cuda: want q (B, S, H, D) and k, v "
+        raise ValueError(f"{fn_name}: want q (B, S, H, D) and k, v "
                          f"(B, Skv, Hkv, D) with H % Hkv == 0, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        raise RuntimeError("flash_attention_cuda: the kernel has no backward; call it "
+        raise RuntimeError(f"{fn_name}: the kernel has no backward; call it "
                            "under torch.no_grad() or torch.inference_mode()")
     if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {D} not in {HEAD_DIMS}")
+        raise ValueError(f"{fn_name}: head dim {D} not in {HEAD_DIMS}")
     if window is not None and window < 1:
-        raise ValueError(f"flash_attention_cuda: window must be >= 1, got {window}")
+        raise ValueError(f"{fn_name}: window must be >= 1, got {window}")
     check_every_row_attends(S, Skv, window)
     scale = D ** -0.5 if scale is None else scale
     o = torch.empty_like(q)
-    err = build.library().flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
+    err = getattr(build.library(), fn_name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         B, H, Hkv, S, Skv, D, scale, int(causal),
         -1 if window is None else int(window), float(softcap or 0.0),
         torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "flash_attn_fwd")
-    flash_attention_cuda.launches += 1
+    build.check(err, fn_name)
     return o
 
 
-flash_attention_cuda.launches = 0
+def flash_attention_tc(q, k, v, *, causal=True, window=None, softcap=None,
+                       scale=None) -> torch.Tensor:
+    """bf16 attention forward on the tensor cores (``csrc/flash_attn_tc.cu``)."""
+    o = _launch("flash_attn_tc_fwd", torch.bfloat16, q, k, v, causal, window,
+                softcap, scale)
+    flash_attention_tc.launches += 1
+    return o
+
+
+def flash_attention_f32(q, k, v, *, causal=True, window=None, softcap=None,
+                        scale=None) -> torch.Tensor:
+    """fp32 attention forward on the CUDA cores (``csrc/flash_attn.cu``)."""
+    o = _launch("flash_attn_fwd", torch.float32, q, k, v, causal, window,
+                softcap, scale)
+    flash_attention_f32.launches += 1
+    return o
+
+
+flash_attention_tc.launches = 0
+flash_attention_f32.launches = 0

@@ -1,48 +1,170 @@
-"""Wrapper of the fused LARS kernel (``csrc/lars_update.cu``).
+"""Wrapper of the multi-tensor LARS kernels (``csrc/lars_update.cu``).
 
-Replaces ``repro/kernels/lars_update.py`` (Pallas). The norms and the trust
-ratio are computed outside the kernel, on the device, as the JAX wrapper
-does (``kernels/ref.py::lars_trust``); the kernel reads the trust ratio
-through a pointer and does the elementwise update in one pass.
+Replaces ``repro/kernels/lars_update.py`` (Pallas, one leaf a call) and the
+per-leaf loop around it: one call updates every leaf of a step, LARS and
+skip leaves alike, in two launches (the norms, then the update). The table
+of leaves goes by value in the launch's parameters; p' and v' land in one
+flat buffer each, and the leaves come back as views of them.
+
+``leaf_plan`` cuts the leaves into launches and chunks; it is plain Python,
+so the CPU tests check that it covers every element once.
 """
 
 from __future__ import annotations
+
+import ctypes
+import dataclasses
 
 import torch
 
 from repro_torch.kernels import build
 
+MAX_LEAVES = 512     # leaves a launch: kMaxLeaves of csrc/lars_update.cu
+CHUNK = 32768        # elements a block
 
-def lars_update_cuda(p: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
-                     trust: torch.Tensor, *, lr: float, mom: float,
-                     weight_decay: float, nesterov: bool = False):
-    """Launch the LARS kernel on fp32 CUDA tensors; returns ``(p', v')``.
 
-    ``trust`` is a one-element fp32 tensor on the same device.
+class _Table(ctypes.Structure):
+    """``LarsTable`` of csrc/lars_update.cu, field for field."""
+    _fields_ = [("p", ctypes.c_void_p * MAX_LEAVES),
+                ("g", ctypes.c_void_p * MAX_LEAVES),
+                ("v", ctypes.c_void_p * MAX_LEAVES),
+                ("off", ctypes.c_longlong * MAX_LEAVES),
+                ("n", ctypes.c_int * MAX_LEAVES),
+                ("chunk0", ctypes.c_int * (MAX_LEAVES + 1)),
+                ("lars", ctypes.c_int * MAX_LEAVES),
+                ("n_leaves", ctypes.c_int),
+                ("chunk", ctypes.c_int)]
+
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """One pair of launches: leaves ``first`` .. ``first + len(chunk0) - 2``."""
+    first: int
+    chunk0: tuple[int, ...]    # each leaf's first block; the last entry = blocks
+    offsets: tuple[int, ...]   # each leaf's offset in the flat outputs
+
+    @property
+    def blocks(self) -> int:
+        return self.chunk0[-1]
+
+
+def leaf_plan(numels: list[int], *, max_leaves: int = MAX_LEAVES,
+              chunk: int = CHUNK) -> list[Launch]:
+    """Cut leaves of ``numels`` elements into launches of at most
+    ``max_leaves`` leaves, each leaf into blocks of ``chunk`` elements, and
+    place the leaves one after another in the flat outputs."""
+    launches, off = [], 0
+    for first in range(0, len(numels), max_leaves):
+        chunk0, offsets = [0], []
+        for n in numels[first:first + max_leaves]:
+            if not 0 < n < 2**31:
+                raise ValueError(f"lars_update: a leaf of {n} elements")
+            offsets.append(off)
+            off += n
+            chunk0.append(chunk0[-1] + -(-n // chunk))
+        launches.append(Launch(first, tuple(chunk0), tuple(offsets)))
+    return launches
+
+
+def block_ranges(launch: Launch, numels: list[int], chunk: int = CHUNK):
+    """(leaf, start, end) of each block of a launch, as the kernels find
+    them (``find_leaf``: the last leaf whose first block is <= b)."""
+    out, leaf = [], 0
+    for b in range(launch.blocks):
+        while launch.chunk0[leaf + 1] <= b:
+            leaf += 1
+        start = (b - launch.chunk0[leaf]) * chunk
+        n = numels[launch.first + leaf]
+        out.append((launch.first + leaf, start, min(start + chunk, n)))
+    return out
+
+
+def _check(ps, gs, vs) -> torch.device:
+    """The leaves' one CUDA device; raises on anything the kernels do not take."""
+    dev = ps[0].device if ps else None
+    if dev is None or dev.type != "cuda":
+        raise ValueError(f"lars_update_cuda: leaves must be on a CUDA device, got {dev}")
+    f32 = torch.float32
+    for i, (p, g, v) in enumerate(zip(ps, gs, vs)):
+        for name, t in (("p", p), ("g", g), ("v", v)):
+            if t.device != dev:
+                raise ValueError(f"lars_update_cuda: {name}[{i}] is on {t.device}, "
+                                 f"not {dev}")
+            if t.dtype != f32:
+                raise TypeError(f"lars_update_cuda: {name}[{i}] must be float32, "
+                                f"got {t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError(f"lars_update_cuda: {name}[{i}] must be contiguous")
+        if g.shape != p.shape or v.shape != p.shape:
+            raise ValueError(f"lars_update_cuda: leaf {i}: p {tuple(p.shape)}, "
+                             f"g {tuple(g.shape)}, v {tuple(v.shape)}")
+    return dev
+
+
+_plans: dict = {}
+
+
+def lars_update_cuda(ps: list[torch.Tensor], gs: list[torch.Tensor],
+                     vs: list[torch.Tensor], lars: list[bool], *, lr: float,
+                     mom: float, eta: float, weight_decay: float, eps: float,
+                     nesterov: bool = False):
+    """One LARS step over all leaves on the card; returns ``(ps', vs')``.
+
+    ``lars[i]`` False makes leaf i a skip leaf (trust 1, no weight decay).
+    Leaves are fp32, contiguous, on one CUDA device; the outputs are views
+    of two flat buffers, and the inputs are left as they were.
     """
-    for name, t in (("p", p), ("g", g), ("v", v), ("trust", trust)):
-        if not t.is_cuda or t.device != p.device:
-            raise ValueError(f"lars_update_cuda: {name} must be on {p.device}, "
-                             f"got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"lars_update_cuda: {name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"lars_update_cuda: {name} must be contiguous")
-    if g.shape != p.shape or v.shape != p.shape:
-        raise ValueError(f"lars_update_cuda: shapes differ: p {tuple(p.shape)}, "
-                         f"g {tuple(g.shape)}, v {tuple(v.shape)}")
-    if trust.numel() != 1:
-        raise ValueError("lars_update_cuda: trust must hold one element")
+    if not (len(ps) == len(gs) == len(vs) == len(lars)):
+        raise ValueError("lars_update_cuda: ps, gs, vs and lars differ in length")
+    dev = _check(ps, gs, vs)
+    numels = [p.numel() for p in ps]
+    key = (tuple(numels), tuple(bool(x) for x in lars))
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = [(launch, _static_table(launch, numels, lars))
+                              for launch in leaf_plan(numels)]
     lib = build.library()
-    p_out = torch.empty_like(p)
-    v_out = torch.empty_like(v)
-    err = lib.lars_update_f32(
-        p.data_ptr(), g.data_ptr(), v.data_ptr(), p_out.data_ptr(),
-        v_out.data_ptr(), trust.data_ptr(), lr, mom, weight_decay,
-        p.numel(), int(nesterov), torch.cuda.current_stream(p.device).cuda_stream)
-    build.check(err, "lars_update_f32")
-    lars_update_cuda.launches += 1
-    return p_out, v_out
+    total = sum(numels)
+    p_flat = torch.empty(total, dtype=torch.float32, device=dev)
+    v_flat = torch.empty(total, dtype=torch.float32, device=dev)
+    partial = torch.empty(2 * sum(launch.blocks for launch, _ in plan),
+                          dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    slot = 0
+    for launch, table in plan:
+        k = len(launch.offsets)
+        sl = slice(launch.first, launch.first + k)
+        table.p[:k] = [t.data_ptr() for t in ps[sl]]
+        table.g[:k] = [t.data_ptr() for t in gs[sl]]
+        table.v[:k] = [t.data_ptr() for t in vs[sl]]
+        scratch = partial.data_ptr() + 4 * slot
+        ref = ctypes.byref(table)
+        build.check(lib.lars_norms_f32(ref, scratch, launch.blocks, stream),
+                    "lars_norms_f32")
+        lars_update_cuda.launches += 1
+        build.check(lib.lars_apply_f32(
+            ref, scratch, p_flat.data_ptr(), v_flat.data_ptr(), launch.blocks,
+            lr, mom, eta, weight_decay, eps, int(nesterov), stream), "lars_apply_f32")
+        lars_update_cuda.launches += 1
+        slot += 2 * launch.blocks
+    return (list(torch._utils._unflatten_dense_tensors(p_flat, ps)),
+            list(torch._utils._unflatten_dense_tensors(v_flat, ps)))
+
+
+def _static_table(launch: Launch, numels: list[int], lars: list[bool]) -> _Table:
+    """The table's fields that depend on the shapes only; the pointers are
+    filled in at each call."""
+    lib = build.library()
+    build.check(lib.lars_table_check(ctypes.sizeof(_Table)), "lars_table_check")
+    t = _Table()
+    k = len(launch.offsets)
+    t.n[:k] = numels[launch.first:launch.first + k]
+    t.off[:k] = list(launch.offsets)
+    t.chunk0[:k + 1] = list(launch.chunk0)
+    t.lars[:k] = [int(bool(x)) for x in lars[launch.first:launch.first + k]]
+    t.n_leaves = k
+    t.chunk = CHUNK
+    return t
 
 
 lars_update_cuda.launches = 0

@@ -11,28 +11,39 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attn import check_every_row_attends, flash_attention_cuda
+from repro_torch.kernels.flash_attn import (check_every_row_attends, flash_attention_cuda,
+                                            flash_attention_f32, flash_attention_tc)
 from repro_torch.kernels.lars_update import lars_update_cuda
 from repro_torch.kernels.ls_xent import LSXent, ls_xent_bwd_cuda, ls_xent_fwd_cuda
 
 _WRAPPERS = {"lars_update": lars_update_cuda, "ls_xent_fwd": ls_xent_fwd_cuda,
-             "ls_xent_bwd": ls_xent_bwd_cuda, "flash_attn": flash_attention_cuda}
+             "ls_xent_bwd": ls_xent_bwd_cuda, "flash_attn": flash_attention_tc,
+             "flash_attn_f32": flash_attention_f32}
+
+
+def lars_update_leaves(ps, gs, vs, lars, *, lr, mom, eta, weight_decay, eps,
+                       nesterov: bool = False):
+    """One LARS step over lists of fp32 leaves; returns ``(ps', vs')``.
+
+    ``lars[i]`` False makes leaf i a skip leaf: plain momentum SGD (trust 1,
+    no weight decay). On the card: two launches for all leaves.
+    """
+    if not ps or not ps[0].is_cuda:
+        return ref.lars_update_leaves_ref(ps, gs, vs, lars, lr=lr, mom=mom, eta=eta,
+                                          weight_decay=weight_decay, eps=eps,
+                                          nesterov=nesterov)
+    return lars_update_cuda(ps, gs, vs, lars, lr=lr, mom=mom, eta=eta,
+                            weight_decay=weight_decay, eps=eps, nesterov=nesterov)
 
 
 def lars_update(p, g, v, *, lr, mom, eta, weight_decay, eps,
                 nesterov: bool = False):
-    """Fused LARS step for one fp32 leaf; returns ``(p', v')``.
-
-    The norms and the trust ratio are small reductions on the device
-    (``ref.lars_trust``); the elementwise update is the kernel.
-    """
-    if not p.is_cuda:
-        return ref.lars_update_ref(p, g, v, lr=lr, mom=mom, eta=eta,
-                                   weight_decay=weight_decay, eps=eps,
-                                   nesterov=nesterov)
-    trust = ref.lars_trust(p, g, eta=eta, weight_decay=weight_decay, eps=eps)
-    return lars_update_cuda(p, g, v, trust, lr=lr, mom=mom,
-                            weight_decay=weight_decay, nesterov=nesterov)
+    """Fused LARS step for one fp32 leaf; returns ``(p', v')``: a one-leaf
+    call of ``lars_update_leaves``."""
+    ps, vs = lars_update_leaves([p], [g], [v], [True], lr=lr, mom=mom, eta=eta,
+                                weight_decay=weight_decay, eps=eps,
+                                nesterov=nesterov)
+    return ps[0], vs[0]
 
 
 def ls_xent(logits: torch.Tensor, labels: torch.Tensor, *,

@@ -39,6 +39,32 @@ def lars_update_ref(p, g, v, *, lr, mom, eta, weight_decay, eps,
     return p - step, v_new
 
 
+def momentum_sgd_ref(p, g, v, *, lr, mom, nesterov: bool = False):
+    """A skip leaf's update (``core/lars.py``: bias and BN): no trust ratio,
+    no weight decay. v' = mom*v + lr*g; p' = p - v' (nesterov as above)."""
+    p, g = p.float(), g.float()
+    v_new = mom * v + lr * g
+    step = mom * v_new + (v_new - mom * v) if nesterov else v_new
+    return p - step, v_new
+
+
+def lars_update_leaves_ref(ps, gs, vs, lars, *, lr, mom, eta, weight_decay, eps,
+                           nesterov: bool = False):
+    """The multi-tensor kernels' function: ``lars_update_ref`` on each leaf
+    with ``lars[i]`` true, ``momentum_sgd_ref`` on the others."""
+    out_p, out_v = [], []
+    for p, g, v, is_lars in zip(ps, gs, vs, lars, strict=True):
+        if is_lars:
+            p_new, v_new = lars_update_ref(p, g, v, lr=lr, mom=mom, eta=eta,
+                                           weight_decay=weight_decay, eps=eps,
+                                           nesterov=nesterov)
+        else:
+            p_new, v_new = momentum_sgd_ref(p, g, v, lr=lr, mom=mom, nesterov=nesterov)
+        out_p.append(p_new)
+        out_v.append(v_new)
+    return out_p, out_v
+
+
 def ls_xent_fwd_ref(logits: torch.Tensor, labels: torch.Tensor,
                     smoothing: float):
     """The forward kernel's outputs: per-row (loss, lse), fp32.
@@ -105,3 +131,19 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask, s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w, v).to(q.dtype)
+
+
+def flash_attention_tol(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        want: torch.Tensor, **kw) -> torch.Tensor:
+    """Elementwise bound on |kernel - flash_attention_ref(q, k, v, **kw)|.
+
+    fp32: 1e-5 + 1e-5 |want| (the same math, summed in another order).
+    bf16: 1e-5 + 2^-7 |want| + 2^-8 (P . |v|): the output's own rounding,
+    plus one bf16 rounding of each probability before P . V, as every
+    tensor-core flash kernel does (P . |v|: ``flash_attention_ref`` on |v|).
+    """
+    want = want.float()
+    if q.dtype == torch.float32:
+        return 1e-5 + 1e-5 * want.abs()
+    p_abs_v = flash_attention_ref(q.float(), k.float(), v.float().abs(), **kw)
+    return 1e-5 + 2.0 ** -7 * want.abs() + 2.0 ** -8 * p_abs_v

@@ -40,9 +40,9 @@ from repro_torch.train.trainer import TrainerConfig, make_train_step
 
 # kernel-name fragments -> class, first match wins
 CLASSES = (
-    ("port: lars_update", ("lars_update_kernel",)),
+    ("port: lars_update", ("lars_norms_kernel", "lars_apply_kernel")),
     ("port: ls_xent", ("ls_xent_",)),
-    ("port: flash_attn", ("flash_fwd_kernel",)),
+    ("port: flash_attn", ("flash_tc_kernel", "flash_fwd_kernel")),
     ("convolution / matmul", ("conv", "gemm", "xmma", "cutlass", "wgrad", "dgrad",
                               "implicit", "sm90_", "cudnn", "nhwc", "nchw", "nvjet")),
     ("reduction", ("reduce", "norm")),

@@ -19,7 +19,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.nn import attention as jA
 from repro.nn import layers as jL
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.nn import attention as tA
 from repro_torch.nn import layers as tL
 
@@ -112,6 +112,47 @@ def test_flash_equals_model_sdpa():
     want = jA._sdpa(jq, jk, jv, mask, cfg).reshape(1, 64, 4, 32)
     got = ops.flash_attention(q, k, v, window=24, softcap=50.0)
     _close(got, want, jnp.float32)
+
+
+def _tensor_core_arithmetic(q, k, v, *, causal, window, softcap):
+    """The bf16 tensor-core kernel's arithmetic, on the CPU: fp32 logits,
+    exp(s - max) rounded to bf16 before P.V, fp32 row sums, bf16 output."""
+    group = q.shape[2] // k.shape[2]
+    kf = k.float().repeat_interleave(group, 2)
+    vf = v.float().repeat_interleave(group, 2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * q.shape[-1] ** -0.5
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    i = torch.arange(q.shape[1])[:, None]
+    j = torch.arange(k.shape[1])[None, :]
+    keep = torch.ones_like(i == j)
+    if causal:
+        keep &= j <= i
+    if window is not None:
+        keep &= j > i - window
+    s = s.masked_fill(~keep, float("-inf"))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bhqk,bkhd->bqhd", e.bfloat16().float(), vf)
+    return (o / e.sum(-1).transpose(1, 2)[..., None]).bfloat16()
+
+
+@pytest.mark.parametrize("causal,window,softcap", [(True, None, None), (False, None, None),
+                                                   (True, 40, 50.0)])
+def test_flash_bf16_tolerance_covers_the_tensor_core_rounding(causal, window, softcap):
+    """kernels/ref.py::flash_attention_tol, which chip_smoke.py and the card
+    tests hold the bf16 kernel to, admits the rounding of P to bf16 that the
+    tensor-core kernel does, against the JAX package's plain attention."""
+    (jq, jk, jv), (q, k, v) = _qkv(21, 2, 160, 160, 4, 2, 64, jnp.bfloat16, scale=2.0)
+    want = _t(jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window,
+                                       softcap=softcap))
+    got = _tensor_core_arithmetic(q, k, v, causal=causal, window=window, softcap=softcap)
+    bound = ref.flash_attention_tol(q, k, v, want, causal=causal, window=window,
+                                    softcap=softcap)
+    err = (got.float() - want).abs()
+    assert bool((err <= bound).all()), (err / bound).max()
+    # the plain version itself sits well inside it
+    plain = ops.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    assert bool(((plain.float() - want).abs() <= bound).all())
 
 
 # ------------------------------------------------------------------ layers --

@@ -16,8 +16,9 @@ from repro_torch.core.batch_control import build_plan
 from repro_torch.core.schedules import BatchSchedule, BatchStage
 from repro_torch.data.synthetic import SyntheticImageNet
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attn import flash_attention_cuda
-from repro_torch.kernels.lars_update import lars_update_cuda
+from repro_torch.kernels.flash_attn import (flash_attention_cuda, flash_attention_f32,
+                                            flash_attention_tc)
+from repro_torch.kernels.lars_update import MAX_LEAVES, lars_update_cuda
 from repro_torch.kernels.ls_xent import ls_xent_bwd_cuda, ls_xent_fwd_cuda
 from repro_torch.models import resnet
 from repro_torch.models import transformer as T
@@ -52,7 +53,7 @@ def test_lars_kernel_matches_plain(cuda, shape, nesterov):
     got = ops.lars_update(p, g, v, **LARS_KW, nesterov=nesterov)
     want = ref.lars_update_ref(p, g, v, **LARS_KW, nesterov=nesterov)
     torch.cuda.synchronize()
-    assert lars_update_cuda.launches == before + 1
+    assert lars_update_cuda.launches == before + 2     # the norms, the update
     # fp32 both ways; the kernel contracts multiply-adds
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
@@ -100,8 +101,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         ls_xent_fwd_cuda(x, y.cpu(), 0.1)
     with pytest.raises(TypeError):
-        lars_update_cuda(x.double(), x.double(), x.double(),
-                         torch.ones(1, device=cuda), lr=1.0, mom=0.9, weight_decay=0.0)
+        lars_update_cuda([x.double()], [x.double()], [x.double()], [True], **LARS_KW)
 
 
 def test_tiny_resnet_trains_the_same_on_the_card_and_the_host(cuda):
@@ -123,8 +123,11 @@ def test_tiny_resnet_trains_the_same_on_the_card_and_the_host(cuda):
                                   log=lambda s: None)
         out[d] = (state, [h["loss"] for h in hist])
     n_lars = sum(1 for n in out["cpu"][0].params if "kernel" in n)
-    assert ops.launch_counts() == {"lars_update": 3 * n_lars, "ls_xent_fwd": 3,
-                                   "ls_xent_bwd": 3, "flash_attn": 0}
+    assert n_lars > 0
+    # every leaf, LARS and skip, in two launches a step
+    assert ops.launch_counts() == {"lars_update": 2 * 3, "ls_xent_fwd": 3,
+                                   "ls_xent_bwd": 3, "flash_attn": 0,
+                                   "flash_attn_f32": 0}
     # cuDNN and the host sum convolutions in different orders
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         assert abs(a - b) <= 1e-4 * max(1.0, abs(b))
@@ -132,16 +135,24 @@ def test_tiny_resnet_trains_the_same_on_the_card_and_the_host(cuda):
         torch.testing.assert_close(out["cuda"][0].params[k].cpu(), p, rtol=1e-4, atol=1e-4)
 
 
-# fp32: the kernel and the plain version sum in different orders. bf16: the
-# same fp32 math, then one bf16 rounding of the output, which may fall on
-# either side (one bf16 step, 2^-7 relative).
-FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
-             torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+def assert_flash_close(got, q, k, v, **kw):
+    """The kernel's output within ``ref.flash_attention_tol`` of the plain
+    version: fp32 1e-5 + 1e-5|ref|; bf16 adds one bf16 rounding of the
+    output (2^-7|ref|) and of each probability before P . V (2^-8 P.|v|)."""
+    want = ref.flash_attention_ref(q, k, v, **kw).float()
+    err = (got.float() - want).abs()
+    bound = ref.flash_attention_tol(q, k, v, want, **kw)
+    assert bool((err <= bound).all()), (
+        f"max err {err.max().item():.3e}, worst err/bound {(err / bound).max().item():.3f}")
+
+
+FLASH_WRAPPER = {torch.float32: flash_attention_f32, torch.bfloat16: flash_attention_tc}
 
 
 @pytest.mark.parametrize("b,s,skv,h,hkv,d", [
     (2, 64, 64, 2, 2, 32), (1, 200, 200, 4, 2, 64), (2, 128, 128, 4, 1, 128),
     (1, 96, 96, 2, 1, 256), (1, 1000, 1000, 2, 1, 128), (1, 64, 130, 2, 2, 64),
+    (1, 77, 300, 8, 2, 256), (2, 300, 77, 4, 4, 32), (1, 129, 257, 4, 1, 64),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -150,12 +161,11 @@ def test_flash_kernel_matches_plain(cuda, b, s, skv, h, hkv, d, causal, dtype):
     q = torch.randn(b, s, h, d, generator=g_, device=cuda).to(dtype)
     k = torch.randn(b, skv, hkv, d, generator=g_, device=cuda).to(dtype)
     v = torch.randn(b, skv, hkv, d, generator=g_, device=cuda).to(dtype)
-    before = flash_attention_cuda.launches
+    before = FLASH_WRAPPER[dtype].launches
     got = ops.flash_attention(q, k, v, causal=causal)
-    want = ref.flash_attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert flash_attention_cuda.launches == before + 1
-    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    assert FLASH_WRAPPER[dtype].launches == before + 1
+    assert_flash_close(got, q, k, v, causal=causal)
 
 
 @pytest.mark.parametrize("window,softcap,scale", [(16, None, None), (256, 50.0, None),
@@ -167,21 +177,109 @@ def test_flash_kernel_window_softcap_scale(cuda, window, softcap, scale, dtype):
     k = (3 * torch.randn(2, 300, 2, 128, generator=g_, device=cuda)).to(dtype)
     v = torch.randn(2, 300, 2, 128, generator=g_, device=cuda).to(dtype)
     kw = dict(causal=True, window=window, softcap=softcap, scale=scale)
-    got = ops.flash_attention(q, k, v, **kw)
-    want = ref.flash_attention_ref(q, k, v, **kw)
-    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    assert_flash_close(ops.flash_attention(q, k, v, **kw), q, k, v, **kw)
     if window is not None and window < 300:
         # fewer keys than queries: the last row keeps one key and agrees; one
         # key fewer leaves it none, which the wrapper refuses on both devices
         skv = 300 - window + 1
         kc, vc = k[:, :skv].contiguous(), v[:, :skv].contiguous()
-        got = ops.flash_attention(q, kc, vc, **kw)
-        want = ref.flash_attention_ref(q, kc, vc, **kw)
-        torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+        assert_flash_close(ops.flash_attention(q, kc, vc, **kw), q, kc, vc, **kw)
         for dev in (cuda, "cpu"):
             with pytest.raises(ValueError, match="no key"):
                 ops.flash_attention(q.to(dev), kc[:, 1:].contiguous().to(dev),
                                     vc[:, 1:].contiguous().to(dev), **kw)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("causal,window,softcap,scale", [
+    (True, 100, 50.0, 0.07), (False, None, 30.0, None), (False, 64, None, 0.2)])
+@pytest.mark.parametrize("hkv", [4, 2, 1])
+def test_flash_tc_kernel_features_at_every_head_dim(cuda, d, causal, window, softcap,
+                                                    scale, hkv):
+    """The bf16 tensor-core kernel with masks, softcap, scale, ragged S and
+    Skv and H/Hkv of 1, 2 and 4, at each head dim."""
+    g_ = _gen(cuda, d + hkv)
+    s, skv = 333, 290
+    q = (2 * torch.randn(2, s, 4, d, generator=g_, device=cuda)).to(torch.bfloat16)
+    k = (2 * torch.randn(2, skv, hkv, d, generator=g_, device=cuda)).to(torch.bfloat16)
+    v = torch.randn(2, skv, hkv, d, generator=g_, device=cuda).to(torch.bfloat16)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    before = flash_attention_tc.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_tc.launches == before + 1
+    assert_flash_close(got, q, k, v, **kw)
+
+
+def _leaves(dev, shapes, seed):
+    g_ = _gen(dev, seed)
+    return [tuple((s * torch.randn(shape, generator=g_, device=dev)).contiguous()
+                  for s in (0.05, 0.01, 1e-3)) for shape in shapes]
+
+
+# LARS leaves and skip leaves from 7 to 2.4 M elements; the last leaf sits one
+# float past a 16-byte boundary, which takes the kernels' scalar path
+MIXED = [((7,), True), ((64,), False), ((1000,), False), ((2048, 1000), True),
+         ((512, 512, 3, 3), True), ((256, 129), True), ((2048,), False),
+         ((3, 3, 3, 64), True), ((1,), False)]
+
+
+@pytest.mark.parametrize("nesterov", [False, True])
+def test_lars_multi_tensor_step_matches_plain(cuda, nesterov):
+    leaves = _leaves(cuda, [s for s, _ in MIXED], 7)
+    bufs = [s * torch.randn(1000, generator=_gen(cuda, 3), device=cuda)
+            for s in (0.05, 0.01, 1e-3)]
+    leaves.append(tuple(b[1:] for b in bufs))   # 4-byte, not 16-byte aligned
+    lars = [x for _, x in MIXED] + [True]
+    ps, gs, vs = (list(t) for t in zip(*leaves))
+    before = lars_update_cuda.launches
+    got_p, got_v = ops.lars_update_leaves(ps, gs, vs, lars, **LARS_KW, nesterov=nesterov)
+    torch.cuda.synchronize()
+    assert lars_update_cuda.launches == before + 2
+    want_p, want_v = ref.lars_update_leaves_ref(ps, gs, vs, lars, **LARS_KW,
+                                                nesterov=nesterov)
+    for a, b, p in zip(got_p + got_v, want_p + want_v, ps + ps):
+        assert a.shape == p.shape and a.dtype == torch.float32
+        # fp32 both ways; the norms sum in another order, the kernel contracts
+        # multiply-adds
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_lars_multi_tensor_step_repeats_bit_for_bit(cuda):
+    leaves = _leaves(cuda, [s for s, _ in MIXED], 8)
+    ps, gs, vs = (list(t) for t in zip(*leaves))
+    lars = [x for _, x in MIXED]
+    runs = [ops.lars_update_leaves(ps, gs, vs, lars, **LARS_KW) for _ in range(2)]
+    for a, b in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
+        assert torch.equal(a, b)
+
+
+def test_lars_multi_tensor_step_splits_a_long_table(cuda):
+    """More leaves than one launch's table holds: a pair of launches a table."""
+    n = 2 * MAX_LEAVES + 3
+    leaves = _leaves(cuda, [(5 + i % 17,) for i in range(n)], 9)
+    ps, gs, vs = (list(t) for t in zip(*leaves))
+    lars = [i % 3 != 0 for i in range(n)]
+    before = lars_update_cuda.launches
+    got_p, got_v = ops.lars_update_leaves(ps, gs, vs, lars, **LARS_KW)
+    torch.cuda.synchronize()
+    assert lars_update_cuda.launches == before + 2 * 3
+    want_p, want_v = ref.lars_update_leaves_ref(ps, gs, vs, lars, **LARS_KW)
+    for a, b in zip(got_p + got_v, want_p + want_v):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_lars_wrapper_refuses_cpu_mixed_and_non_fp32_leaves(cuda):
+    x = torch.randn(10, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        lars_update_cuda([x.cpu()], [x.cpu()], [x.cpu()], [True], **LARS_KW)
+    with pytest.raises(ValueError, match="is on cpu"):
+        lars_update_cuda([x, x], [x, x.cpu()], [x, x], [True, False], **LARS_KW)
+    with pytest.raises(TypeError, match="float32"):
+        lars_update_cuda([x], [x.bfloat16()], [x], [True], **LARS_KW)
+    with pytest.raises(ValueError, match="contiguous"):
+        y = torch.randn(4, 4, device=cuda).t()
+        lars_update_cuda([y], [y], [y], [True], **LARS_KW)
 
 
 def test_transformer_forward_under_autograd_raises_on_the_card(cuda):

@@ -22,7 +22,8 @@ from repro.core import losses as jlosses
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels.flash_attn import flash_attention_cuda
+from repro_torch.kernels.flash_attn import (flash_attention_cuda, flash_attention_f32,
+                                            flash_attention_tc)
 from repro_torch.kernels.lars_update import lars_update_cuda
 from repro_torch.kernels.ls_xent import ls_xent_bwd_cuda, ls_xent_fwd_cuda
 
@@ -164,7 +165,8 @@ def test_cpu_tensors_launch_no_kernel():
     ops.flash_attention(torch.randn(1, 8, 2, 32), torch.randn(1, 8, 1, 32),
                         torch.randn(1, 8, 1, 32))
     assert ops.launch_counts() == {"lars_update": 0, "ls_xent_fwd": 0,
-                                   "ls_xent_bwd": 0, "flash_attn": 0}
+                                   "ls_xent_bwd": 0, "flash_attn": 0,
+                                   "flash_attn_f32": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -176,22 +178,25 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         ls_xent_bwd_cuda(x, y, torch.zeros(4), torch.ones(4), 0.1)
     with pytest.raises(ValueError):
-        lars_update_cuda(torch.ones(3), torch.ones(3), torch.ones(3), torch.ones(1),
-                         lr=1.0, mom=0.9, weight_decay=0.0)
+        lars_update_cuda([torch.ones(3)], [torch.ones(3)], [torch.ones(3)], [True],
+                         **LARS_KW)
     q = torch.randn(1, 8, 2, 32)
-    with pytest.raises(ValueError):
-        flash_attention_cuda(q, q, q)
+    for fn in (flash_attention_cuda, flash_attention_tc, flash_attention_f32):
+        with pytest.raises(ValueError):
+            fn(q.to(torch.bfloat16) if fn is flash_attention_tc else q, q, q)
     assert ops.launch_counts()["ls_xent_fwd"] == 0
 
 
 def test_ctypes_signatures_match_the_c_sources():
     """Each function bound in build.SIGNATURES exists in csrc/ as extern "C"
-    with the same number of parameters (nvcc cannot check this here)."""
+    with the same number of parameters, and each extern "C" function there
+    is bound (nvcc cannot check this here)."""
     src = "\n".join(p.read_text() for p in sorted(Path(build.CSRC).glob("*.cu")))
     for name, argtypes in build.SIGNATURES.items():
         m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
         assert m, name
         assert len(m.group(1).split(",")) == len(argtypes), name
+    assert set(re.findall(r'extern "C" int (\w+)\(', src)) == set(build.SIGNATURES)
 
 
 def test_library_is_built_into_the_checkouts_build_dir():
