@@ -36,10 +36,11 @@ SIGNATURES = {
     "lars_apply_f32": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_float,
                        ctypes.c_float, ctypes.c_float, ctypes.c_float,
                        ctypes.c_float, ctypes.c_int, _P),
+    # ..., rows, vocab, smoothing, threads a row, stream
     "ls_xent_fwd": (_P, ctypes.c_int, _P, _P, _P, ctypes.c_longlong,
-                    ctypes.c_int, ctypes.c_float, _P),
+                    ctypes.c_int, ctypes.c_float, ctypes.c_int, _P),
     "ls_xent_bwd": (_P, ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong,
-                    ctypes.c_int, ctypes.c_float, _P),
+                    ctypes.c_int, ctypes.c_float, ctypes.c_int, _P),
     "flash_attn_fwd": _FLASH,      # fp32, csrc/flash_attn.cu
     "flash_attn_tc_fwd": _FLASH,   # bf16 on the tensor cores, csrc/flash_attn_tc.cu
 }

@@ -98,6 +98,26 @@ def ls_xent_bwd_ref(logits: torch.Tensor, labels: torch.Tensor,
     return d.to(logits.dtype)
 
 
+def ls_xent_bwd_tol(want: torch.Tensor, gout: torch.Tensor,
+                    smoothing: float) -> torch.Tensor:
+    """Elementwise bound on |kernel - ls_xent_bwd_ref(...)|, where ``want``
+    is ``ls_xent_bwd_ref``'s (R, V) output and ``gout`` its (R,) row grads.
+
+    rtol |want|: fp32 1e-5 (the same math, the lse and exponentials rounded
+    differently), bf16 2^-7 (each side rounds its fp32 gradient once). The
+    atol is 1e-6, or less: 2^-10 |gout_r| a/V in row r. Most of a long row's
+    gradients are about -gout_r a/V (softmax far under a/V), and that is
+    under 1e-6 at Qwen3-1.7B's vocab, so a fixed 1e-6 would pass a kernel
+    that wrote them as 0; a kernel's own error there is some 2^-18 of
+    gout_r a/V.
+    """
+    rtol = 1e-5 if want.dtype == torch.float32 else 2.0 ** -7
+    want = want.float()
+    vocab = want.shape[-1]
+    atol = (2.0 ** -10 * smoothing / vocab) * gout.float().abs().unsqueeze(-1)
+    return atol.clamp(max=1e-6) + rtol * want.abs()
+
+
 NEG_INF = -1e30   # the masked logit of repro/kernels/{ref,flash_attn}.py
 
 

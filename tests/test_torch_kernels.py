@@ -21,7 +21,7 @@ from repro.core import lars as jlars
 from repro.core import losses as jlosses
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import build, ls_xent, ops, ref
 from repro_torch.kernels.flash_attn import (flash_attention_cuda, flash_attention_f32,
                                             flash_attention_tc)
 from repro_torch.kernels.lars_update import lars_update_cuda
@@ -36,12 +36,25 @@ def _t(a):
 
 # ------------------------------------------------------------------ ls_xent --
 
-@pytest.mark.parametrize("rows,vocab", [(4, 16), (3, 300), (130, 2048), (5, 2049)])
+# rows of V % 8 != 0 end in a scalar tail after the kernel's 16-byte vectors;
+# these cases put labels there: the tail's first column and its last (V - 1)
+RAGGED = [(3, 1001), (5, 4099)]
+
+
+def _pin_ragged(labels, vocab):
+    flat = labels.reshape(-1)
+    flat[0], flat[-1] = vocab - vocab % 8, vocab - 1
+    return labels
+
+
+@pytest.mark.parametrize("rows,vocab", [(4, 16), (3, 300), (130, 2048), (5, 2049), *RAGGED])
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
 def test_ls_xent_forward_matches_jax_kernel(rows, vocab, smoothing):
     rng = np.random.RandomState(rows * 1000 + vocab)
     logits = (rng.randn(rows, vocab) * 4).astype(np.float32)
     labels = rng.randint(0, vocab, (rows,))
+    if (rows, vocab) in RAGGED:
+        labels = _pin_ragged(labels, vocab)
     want = jops.ls_xent(jnp.asarray(logits), jnp.asarray(labels, jnp.int32),
                         smoothing=smoothing, interpret=True)
     got = ops.ls_xent(_t(logits), _t(labels), smoothing=smoothing)
@@ -63,13 +76,15 @@ def test_ls_xent_forward_bf16_logits():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("shape", [(4, 16), (3, 300), (8, 1000), (2, 6, 100)])
+@pytest.mark.parametrize("shape", [(4, 16), (3, 300), (8, 1000), (2, 6, 100), *RAGGED])
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
 def test_ls_xent_backward_matches_jax_grad(shape, smoothing):
     """The hand-written backward against jax.grad of core/losses.ls_xent_ref."""
     rng = np.random.RandomState(sum(shape))
     logits = (rng.randn(*shape) * 3).astype(np.float32)
     labels = rng.randint(0, shape[-1], shape[:-1])
+    if shape in RAGGED:
+        labels = _pin_ragged(labels, shape[-1])
     gout = rng.rand(*shape[:-1]).astype(np.float32)
     _, vjp = jax.vjp(lambda x: jlosses.ls_xent_ref(x, jnp.asarray(labels), smoothing),
                      jnp.asarray(logits))
@@ -103,6 +118,63 @@ def test_ls_xent_int32_and_int64_labels_agree():
     a = ops.ls_xent(logits, _t(labels.astype(np.int32)), smoothing=0.1)
     b = ops.ls_xent(logits, _t(labels.astype(np.int64)), smoothing=0.1)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_ls_xent_row_mapping():
+    """The threads a row that the wrappers pick, by row length, dtype and kernel."""
+    # the ResNet-50 head, (32 | 64, 1000) fp32: a warp a row forward, 128 threads backward
+    assert ls_xent.row_threads(1000, 4) == 32
+    assert ls_xent.row_threads(1000, 4, backward=True) == 128
+    # Qwen3-1.7B's vocab, 151,936
+    assert ls_xent.row_threads(151936, 4) == ls_xent.row_threads(151936, 2) == 512
+    assert ls_xent.row_threads(151936, 4, backward=True) == 512
+    assert ls_xent.row_threads(151936, 2, backward=True) == 128
+    picked = {ls_xent.row_threads(v, es, b) for v in range(1, 300000, 997)
+              for es in (2, 4) for b in (False, True)}
+    assert picked == set(ls_xent.ROW_THREADS)
+
+
+@pytest.mark.parametrize("rows,vocab", [(2, 151936), (4, 32003)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ls_xent_bwd_tol_holds_every_gradient_at_long_rows(rows, vocab, dtype):
+    """ref.ls_xent_bwd_tol passes the backward kernel's arithmetic (exponentials
+    in the log2 domain) and fails a gradient with columns left at 0: those
+    where softmax is under a/V (the label's aside), which a fixed atol of 1e-6
+    let pass at Qwen3-1.7B's vocab, or only the row's last three."""
+    g_ = torch.Generator().manual_seed(vocab)
+    x = (4 * torch.randn(rows, vocab, generator=g_)).to(dtype)
+    y = torch.randint(0, vocab, (rows,), generator=g_)
+    gout = torch.rand(rows, generator=g_)
+    lse = ref.ls_xent_fwd_ref(x, y, 0.1)[1]
+    want = ref.ls_xent_bwd_ref(x, y, lse, gout, 0.1)
+    tol = ref.ls_xent_bwd_tol(want, gout, 0.1)
+    p = torch.exp2((x.float() - lse[:, None]) * 1.4426950408889634)
+    hit = torch.nn.functional.one_hot(y, vocab).float()
+    kernel_like = (gout[:, None] * (p - 0.1 / vocab - 0.9 * hit)).to(dtype).float()
+    assert bool(((kernel_like - want.float()).abs() <= tol).all())
+    rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    small = torch.where((p < 0.1 / vocab) & (hit == 0), 0.0, want.float())
+    assert (small == 0).float().mean() > 0.5
+    err = (small - want.float()).abs()
+    assert not bool((err <= tol).all())
+    if 0.1 / vocab < 1e-6:   # Qwen3-1.7B's vocab: every such column under 1e-6
+        assert bool((err <= 1e-6 + rtol * want.float().abs()).all())
+    no_tail = want.float().clone()
+    no_tail[:, -3:] = 0
+    assert not bool(((no_tail - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ls_xent_gradient_buffer_keeps_the_logits_offset(dtype):
+    """The backward's output starts at the logits' offset from a 16-byte
+    boundary, so the kernel's load and store vectors line up."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    flat = torch.zeros(3 * 37 + 16 // es, dtype=dtype)
+    for off in range(16 // es):
+        x = flat[off:off + 3 * 37].view(3, 37)
+        d = ls_xent._empty_at_offset_of(x)
+        assert d.shape == x.shape and d.dtype == dtype and d.is_contiguous()
+        assert d.data_ptr() % 16 == x.data_ptr() % 16
 
 
 # --------------------------------------------------------------------- LARS --
