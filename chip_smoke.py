@@ -11,15 +11,18 @@
    and on), ``ls_xent`` forward and backward in fp32 and bf16 at the
    ResNet-50 head's shapes, at Qwen3-1.7B's (4096, 151936) logits and at
    rows that start off a 16-byte boundary, and flash attention at nine
-   shapes, bf16 through the tensor-core kernel and fp32 through the fp32
-   kernel (the wrapper picks by dtype), each under
+   shapes, bf16 through the bf16 tensor-core kernel and fp32 through the
+   3xTF32 one (the wrapper picks by dtype), each under
    ``kernels/ref.py::flash_attention_tol``;
 4. times each kernel beside its bound (the larger of bytes over the HBM
-   rate and operations over the peak for the inputs' type), its plain
+   rate and operations over the peak for the inputs' type; fp32 flash:
+   three TF32 products, with the fp32 FMA bound beside it), its plain
    version and, where one exists, the single PyTorch call computing the
    same function; LARS as the whole ``core/lars.update`` of one step;
    ``ls_xent`` through ``repro_torch.launch.profile_xent`` at
-   (32 | 64, 1000) fp32 and (4096, 151936) fp32 and bf16;
+   (32 | 64, 1000) fp32 and (4096, 151936) fp32 and bf16; flash through
+   ``repro_torch.launch.profile_flash``, the fp32 kernel at the smoke
+   config's shape and at the Qwen3-1.7B prefill shape;
 5. trains full-width ResNet-50 at 224 px through ``Trainer.run`` over a
    two-stage batch-size plan (32 then 64 images a step), and fails on a
    non-finite loss, a skipped step, a kernel the run did not launch, or
@@ -65,10 +68,11 @@ XENT_BWD_TOL = "min(1e-6, 2^-10 |gout| a/V) + fp32 1e-5|ref|, bf16 2^-7|ref|"
 # different orders, and two LARS steps carry that difference forward
 TINY_TOL = 1e-3
 # flash kernels vs their plain version on the same inputs, elementwise:
-# kernels/ref.py::flash_attention_tol. fp32: 1e-5 + 1e-5|ref| (sum order);
-# bf16: 1e-5 + 2^-7|ref| + 2^-8 (P.|v|), the output's rounding plus one bf16
-# rounding of each probability before P.V on the tensor cores
-FLASH_TOL = "fp32 1e-5 + 1e-5|ref|; bf16 1e-5 + 2^-7|ref| + 2^-8 P.|v|"
+# kernels/ref.py::flash_attention_tol. fp32: 1e-5 + 1e-5|ref| of the exact
+# answer (the plain version in fp64); bf16: 1e-5 + 2^-7|ref| + 2^-8 (P.|v|),
+# the output's rounding plus one bf16 rounding of each probability before
+# P.V on the tensor cores
+FLASH_TOL = "fp32 1e-5 + 1e-5|exact|; bf16 1e-5 + 2^-7|ref| + 2^-8 P.|v|"
 # smoke transformers, fp32 compute, card vs host: matmuls and the attention
 # sum in different orders; two layers keep that near fp32 noise
 SMOKE_LOGIT_TOL = 1e-4           # abs and relative, on prefill logits
@@ -87,8 +91,10 @@ def fail(msg: str) -> None:
 
 def check_flash(torch, dev, gen) -> dict:
     """Both flash kernels against their plain version at the serve path's
-    shapes and the kernels' other features; returns the max abs error by
-    dtype (bf16: the tensor-core kernel, fp32: the fp32 kernel)."""
+    shapes and the kernels' other features (fp32: the plain version in
+    fp64, the exact answer); returns the max abs error and
+    the worst err/tol by dtype (bf16: the bf16 kernel, fp32: the 3xTF32
+    kernel)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attn import flash_attention_f32, flash_attention_tc
 
@@ -105,80 +111,61 @@ def check_flash(torch, dev, gen) -> dict:
     ]
     wrapper = {torch.bfloat16: flash_attention_tc, torch.float32: flash_attention_f32}
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    worst_ratio = {torch.bfloat16: 0.0, torch.float32: 0.0}
     for b, sq, skv, h, hkv, d, dtype, causal, window, softcap in cases:
         q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
         k = torch.randn(b, skv, hkv, d, generator=gen, device=dev).to(dtype)
         v = torch.randn(b, skv, hkv, d, generator=gen, device=dev).to(dtype)
         kw = dict(causal=causal, window=window, softcap=softcap)
         before = wrapper[dtype].launches
-        got = ops.flash_attention(q, k, v, **kw).float()
-        want = ref.flash_attention_ref(q, k, v, **kw).float()
+        got = ops.flash_attention(q, k, v, **kw).double()
+        if dtype == torch.float32:   # the exact answer; see flash_attention_tol
+            want = ref.flash_attention_ref(q.double(), k.double(), v.double(), **kw)
+            plain = ref.flash_attention_ref(q, k, v, **kw).double()
+        else:
+            want, plain = ref.flash_attention_ref(q, k, v, **kw).double(), None
         torch.cuda.synchronize()
         if wrapper[dtype].launches != before + 1:
             fail(f"ops.flash_attention did not launch {wrapper[dtype].__name__} on the card")
         err = (got - want).abs()
         bound = ref.flash_attention_tol(q, k, v, want, **kw)
-        e = err.max().item()
+        e, ratio = err.max().item(), (err / bound).max().item()
         worst[dtype] = max(worst[dtype], e)
+        worst_ratio[dtype] = max(worst_ratio[dtype], ratio)
+        also = (f"; the fp32 plain version's own {((plain - want).abs() / bound).max().item():.3f}"
+                if dtype == torch.float32 else "")
         print(f"check flash_attn B{b} S{sq} Skv{skv} H{h}/{hkv} D{d} {str(dtype)[6:]} "
               f"causal={causal} window={window} softcap={softcap}: max_abs_err {e:.3e}, "
-              f"worst err/tol {(err / bound).max().item():.3f} ({wrapper[dtype].__name__})")
+              f"worst err/tol {ratio:.3f} ({wrapper[dtype].__name__}){also}")
         if not bool((err <= bound).all()):
             fail(f"flash_attn disagrees with flash_attention_ref at B{b} S{sq} D{d} {dtype}")
-        del q, k, v, got, want, err, bound
+        del q, k, v, got, want, plain, err, bound
     print(f"check flash_attn: max_abs_err bf16 {worst[torch.bfloat16]:.3e}, fp32 "
-          f"{worst[torch.float32]:.3e} (tol {FLASH_TOL})")
-    return {"bf16": worst[torch.bfloat16], "fp32": worst[torch.float32]}
+          f"{worst[torch.float32]:.3e}; worst err/tol bf16 {worst_ratio[torch.bfloat16]:.3f}, "
+          f"fp32 {worst_ratio[torch.float32]:.3f} (tol {FLASH_TOL})")
+    return {"bf16": (worst[torch.bfloat16], worst_ratio[torch.bfloat16]),
+            "fp32": (worst[torch.float32], worst_ratio[torch.float32])}
 
 
-def time_flash(torch, dev, gen) -> dict:
-    """Both flash kernels at their main path's shapes, beside their plain
-    version, SDPA and their bound: the tensor-core kernel at the Qwen3-1.7B
-    prefill shape (bf16 rate), the fp32 kernel at the Qwen3 smoke config's
-    (fp32 rate)."""
-    import torch.nn.functional as F
+def time_flash(torch, gen) -> dict:
+    """Both flash kernels through ``repro_torch.launch.profile_flash``: the
+    bf16 kernel at the Qwen3-1.7B prefill shape, the fp32 kernel at the
+    Qwen3 smoke config's shape (its main path) and, under "prefill", at the
+    Qwen3-1.7B prefill shape in fp32; each beside its plain version, SDPA
+    and its bound (fp32: 3xTF32, with the fp32 FMA bound beside it)."""
+    from repro_torch.launch import profile_flash
 
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attn import flash_attention_f32, flash_attention_tc
-    from repro_torch.launch.profile_serve import BATCH, SEQ
-    from repro_torch.launch.timing import (BF16_FLOPS_PER_S, FP32_FLOPS_PER_S, eager_ms,
-                                           graph_ms)
-
-    out = {}
-    for name, fn, (b, s, h, hkv, d), dtype, rate, what in (
-            ("flash_attn", flash_attention_tc, (BATCH, SEQ, 16, 8, 128), torch.bfloat16,
-             BF16_FLOPS_PER_S, "Qwen3-1.7B prefill; bf16 tensor cores 989 TFLOP/s"),
-            ("flash_attn_f32", flash_attention_f32, (4, 48, 4, 2, 32), torch.float32,
-             FP32_FLOPS_PER_S, "Qwen3 smoke config; fp32 67 TFLOP/s")):
-        q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
-        k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
-        v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        pairs = b * h * s * (s + 1) // 2     # (query, key) pairs the causal mask keeps
-        big = s >= 1024
-        t = {
-            "ms": graph_ms(lambda: fn(q, k, v), iters=10 if big else 50,
-                           replays=3 if big else 10),
-            "eager_ms": eager_ms(lambda: ops.flash_attention(q, k, v),
-                                 iters=10 if big else 50),
-            "plain_ms": eager_ms(lambda: ref.flash_attention_ref(q, k, v),
-                                 iters=3 if big else 20),
-            # the same function in one PyTorch call, on (B, H, S, D) copies made
-            # beforehand; timed as a yardstick, used nowhere in the port
-            "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True),
-                iters=10 if big else 50, replays=3 if big else 10),
-            "bytes": q.element_size() * (2 * q.numel() + 2 * k.numel()),  # q, k, v in, o out
-            "flops": 4 * d * pairs,                    # q.k and p.v, 2 flops a MAC
-            "flops_per_s": rate,
-            "rate": f"{what.split('; ')[1]}, HBM 3.35 TB/s",
-            "at": f"B{b} S{s} H{h} Hkv{hkv} D{d} {str(dtype)[6:]} causal "
-                  f"({what.split('; ')[0]})",
-        }
-        t["tflops_per_s"] = t["flops"] / t["ms"] / 1e9
+    out, prefill = {}, None
+    for name, shape, dtype, what in profile_flash.SHAPES:
+        t = profile_flash.time_flash(name, shape, dtype, what, gen)
         print(f"time {name} ({t['at']}): {t}")
-        out[name] = t
-        del q, k, v, qt, kt, vt
+        if dtype == torch.float32 and shape == profile_flash.QWEN:
+            prefill = t
+        else:
+            out[name] = t
+    out["flash_attn_f32"]["prefill"] = {k: prefill[k] for k in (
+        "ms", "eager_ms", "bound_ms", "fma_bound_ms", "plain_ms", "library_ms",
+        "tflops_per_s", "worst_err_over_tol", "at")}
     return out
 
 
@@ -466,7 +453,7 @@ def main() -> int:
         for name, t in xent_times[rows, vocab, dtype].items():
             print(f"time {name} ({what}): {t}")
 
-    flash_time = time_flash(torch, dev, gen)
+    flash_time = time_flash(torch, gen)
 
     # -- the main path: full-width ResNet-50 over two batch stages ------------
     data = SyntheticImageNet(num_classes=1000, image_size=224, seed=0, device=dev)
@@ -558,9 +545,9 @@ def main() -> int:
         "ls_xent_bwd": ("cuda", "src/repro_torch/csrc/ls_xent.cu",
                         "src/repro/kernels/ls_xent.py:27", bwd_err),
         "flash_attn": ("cuda", "src/repro_torch/csrc/flash_attn_tc.cu",
-                       "src/repro/kernels/flash_attn.py:34", flash_err["bf16"]),
+                       "src/repro/kernels/flash_attn.py:34", flash_err["bf16"][0]),
         "flash_attn_f32": ("cuda", "src/repro_torch/csrc/flash_attn.cu",
-                           "src/repro/kernels/flash_attn.py:34", flash_err["fp32"]),
+                           "src/repro/kernels/flash_attn.py:34", flash_err["fp32"][0]),
     }
     main_rows = plan.stages[-1].global_batch
     measured = {"lars_update": timing["lars_update"],
@@ -577,19 +564,24 @@ def main() -> int:
     # Qwen3-1.7B in bf16, or the fp32 smoke configs' prefills
     launches = {**counts, "flash_attn": serve["counts"]["flash_attn"],
                 "flash_attn_f32": f32_launches}
+    # the flash checks' worst err/tol over their shapes, by kernel
+    check_ratio = {"flash_attn": flash_err["bf16"][1], "flash_attn_f32": flash_err["fp32"][1]}
     kernels = []
     for name, (route, src, replaces, err) in sources.items():
         t = measured[name]
-        bound_ms, bound_by = bound(t["bytes"], t["flops"],
-                                   t.get("flops_per_s", FP32_FLOPS_PER_S))
+        # flash: profile_flash's bound for the inputs' type (fp32: 3xTF32)
+        bound_ms, bound_by = ((t["bound_ms"], t["bound_by"]) if "bound_ms" in t
+                              else bound(t["bytes"], t["flops"], FP32_FLOPS_PER_S))
         kernels.append({
             "name": name, "route": route, "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
-            **{k: t[k] for k in ("tflops_per_s", "library_fwd_bwd_ms") if k in t},
+            **{k: t[k] for k in ("fma_bound_ms", "tflops_per_s", "library_fwd_bwd_ms",
+                                 "prefill") if k in t},
             **({"lm": xent_lm[name]} if name in xent_lm else {}),
+            **({"worst_err_over_tol": check_ratio[name]} if name in check_ratio else {}),
             "rate": t.get("rate", "fp32 67 TFLOP/s, HBM 3.35 TB/s"),
             "at": t["at"],
         })

@@ -4,7 +4,7 @@
 //
 // Replaces: src/repro/kernels/flash_attn.py::_flash_kernel (the Pallas TPU
 // kernel behind flash_attention_hsd / flash_attention) for bf16 inputs; fp32
-// inputs keep csrc/flash_attn.cu. It computes what kernels/ref.py::
+// inputs go to csrc/flash_attn.cu. It computes what kernels/ref.py::
 // flash_attention_ref computes: per query row i and key j, positions from 0,
 //   s_ij = (q_i . k_j) * scale                       (fp32 accumulation)
 //   s_ij = softcap * tanh(s_ij / softcap)            (when softcap > 0)
@@ -50,10 +50,9 @@
 // - The output goes through shared memory (Q's space) so the stores to
 //   device memory are 16-byte and coalesced.
 
-#include <cuda.h>   // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
@@ -61,7 +60,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;   // two warpgroups
 constexpr int kBM = 128;        // query rows a CTA, 64 a warpgroup
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Cfg {
@@ -73,88 +71,6 @@ struct Cfg {
   static constexpr int kStages = D >= 256 ? 2 : 3;  // K/V ring (smem: 3 fit up to D 128)
   static constexpr size_t kSmem = kQBytes + 2 * kStages * kKVBytes + 1024;  // + alignment
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of 16-byte chunk c (along D) of row r in an R x D bf16 tile
-// laid out as [D / (W/2) atoms][R rows][W bytes] and swizzled as the
-// hardware's Swizzle<log2(W/16), 4, 3>: bits 7.. of the offset XOR bits 4...
-template <int D, int R>
-__device__ __forceinline__ uint32_t tile_offset(int r, int c) {
-  constexpr int W = Cfg<D>::W, per = W / 16;
-  const uint32_t lin = (c / per) * (R * W) + r * W + (c % per) * 16;
-  return lin ^ ((lin >> 3) & (W - 16));
-}
-
-// mbarrier: one a stage, completed by the bytes its TMA copies deliver
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-// TMA: one box of a 4-d tensor map, (d, head, row, batch), into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d, int head, int row,
-                                         int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(head),
-      "r"(row), "r"(batch)
-      : "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Named barriers 1 and 2 hand the tensor cores back and forth between the
-// two warpgroups: each waits for its turn (bar.sync of 256 threads: its own
-// 128 plus the other warpgroup's 128 arrivals), issues its wgmmas and
-// passes the turn on (bar.arrive), so one warpgroup's product runs while
-// the other does its softmax.
-__device__ __forceinline__ void turn_wait(int wg) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
-}
-__device__ __forceinline__ void turn_pass(int wg) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
-}
-// keep the compiler from touching accumulators across an async wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// wgmma shared-memory matrix descriptor: start, leading and stride byte
-// offsets (16-byte units), layout type in bits 62-63 (base offset 0: every
-// atom starts 1024-byte aligned).
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int layout) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
-}
 
 // d (64 x N fp32, N/2 a thread) (+)= A (64 x 16, smem, K-major) . B (16 x N,
 // smem, K-major); scale_d = 0 overwrites d.
@@ -306,14 +222,6 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
-// 2^x in one MUFU instruction; x <= 0 here, and a result below 2^-126
-// flushes to 0, which the fp32 sums cannot see
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&t);
@@ -410,7 +318,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     wgmma_commit();
     turn_pass(wg);
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(s);
 
     // scale (log2 domain) and softcap; the softcap is a template argument
@@ -492,7 +400,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                   make_desc(sv + st * C::kKVBytes + kk * 16 * W, BN * W, 8 * W, L));
     wgmma_commit();
     if (wg == 0 || kb + 1 < kb1) turn_pass(wg);
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(acc);
   }
 
@@ -510,9 +418,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const uint32_t in = (lane % 4) * 4;
-    *reinterpret_cast<uint32_t*>(smem + tile_offset<D, kBM>(r_lo, j) + in) =
+    *reinterpret_cast<uint32_t*>(smem + swz_offset<Cfg<D>::W, kBM>(r_lo, j) + in) =
         pack_bf16(acc[4 * j] * inv_lo, acc[4 * j + 1] * inv_lo);
-    *reinterpret_cast<uint32_t*>(smem + tile_offset<D, kBM>(r_hi, j) + in) =
+    *reinterpret_cast<uint32_t*>(smem + swz_offset<Cfg<D>::W, kBM>(r_hi, j) + in) =
         pack_bf16(acc[4 * j + 2] * inv_hi, acc[4 * j + 3] * inv_hi);
   }
   __syncthreads();
@@ -523,54 +431,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int r = i / CH, c = i % CH;
     if (q0 + r < S)
       *reinterpret_cast<uint4*>(op + r * q_stride + c * 8) =
-          *reinterpret_cast<const uint4*>(smem + tile_offset<D, kBM>(r, c));
+          *reinterpret_cast<const uint4*>(smem + swz_offset<Cfg<D>::W, kBM>(r, c));
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime, so nothing links libcuda
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (B, rows, heads, D) bf16 as a 4-d map, (d, head, row, batch) innermost
-// first, cut into boxes of one swizzle atom: AC columns x box_rows rows.
+// (B, rows, heads, D) bf16 as a 4-d map, cut into boxes of one swizzle
+// atom: AC columns x box_rows rows.
 template <int D>
-bool make_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
-              int box_rows) {
-  constexpr int AC = Cfg<D>::W / 2;
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)rows * heads * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)AC, 1, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             Cfg<D>::W == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+bool make_map_bf16(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
+                   int box_rows) {
+  return make_map(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, B, rows, heads, D,
+                  Cfg<D>::W / 2, box_rows,
+                  Cfg<D>::W == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 template <int D, bool kSoftcap>
@@ -587,9 +459,9 @@ int launch_cap(const void* q, const void* k, const void* v, void* o, int B,
     configured = true;
   }
   CUtensorMap tq, tk, tv;
-  if (!make_map<D>(&tq, q, B, S, H, kBM) ||
-      !make_map<D>(&tk, k, B, Skv, Hkv, Cfg<D>::BN) ||
-      !make_map<D>(&tv, v, B, Skv, Hkv, Cfg<D>::BN))
+  if (!make_map_bf16<D>(&tq, q, B, S, H, kBM) ||
+      !make_map_bf16<D>(&tk, k, B, Skv, Hkv, Cfg<D>::BN) ||
+      !make_map_bf16<D>(&tv, v, B, Skv, Hkv, Cfg<D>::BN))
     return (int)cudaErrorInvalidValue;
   const float cap_in = kSoftcap ? scale / softcap : 0.f;
   const float cap_out = kSoftcap ? softcap * kLog2e : 0.f;

@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
 together, for ``sm_90a`` (Hopper), and the objects are linked into one
 shared library with a plain C interface. The library lands in ``build/``
-at the root of the checkout, named by a hash of the sources and flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
+at the root of the checkout, named by a hash of the sources, the headers
+they include (``csrc/*.cuh``) and the flags, so an edited source or header
+is rebuilt and an unchanged tree is loaded as it is.
 Nothing here runs at import time: the first kernel launch builds.
 """
 
@@ -65,8 +66,10 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
+    """The library's path, named by a hash of the flags and of every source
+    and header in ``csrc/`` (a header's edit rebuilds its includers)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"repro_torch_kernels-{h.hexdigest()[:16]}.so"

@@ -1,9 +1,11 @@
 """Wrappers of the flash-attention forward kernels.
 
 Replace ``repro/kernels/flash_attn.py`` (Pallas). Two kernels, picked by
-dtype with no fallback between them: bf16 goes to ``csrc/flash_attn_tc.cu``
-(wgmma on the tensor cores, P rounded to bf16 before P . V), fp32 to
-``csrc/flash_attn.cu`` (fp32 FMAs; on the tensor cores fp32 would be TF32).
+dtype with no fallback between them, both wgmma on the tensor cores: bf16
+goes to ``csrc/flash_attn_tc.cu`` (P rounded to bf16 before P . V), fp32 to
+``csrc/flash_attn.cu`` (3xTF32: each operand split into a TF32 high part
+and a TF32 remainder, each product taken as hi.hi + hi.lo + lo.hi, so the
+result holds fp32's tolerance).
 The JAX wrapper pads S and Skv to 128, folds (B, H) and repeats the kv heads
 in memory; both kernels take the (B, S, H, D) layout as it is, mask the
 ragged edge themselves and read kv head ``h // (H // Hkv)`` in place of a
@@ -103,7 +105,7 @@ def flash_attention_tc(q, k, v, *, causal=True, window=None, softcap=None,
 
 def flash_attention_f32(q, k, v, *, causal=True, window=None, softcap=None,
                         scale=None) -> torch.Tensor:
-    """fp32 attention forward on the CUDA cores (``csrc/flash_attn.cu``)."""
+    """fp32 attention forward on the tensor cores in 3xTF32 (``csrc/flash_attn.cu``)."""
     o = _launch("flash_attn_fwd", torch.float32, q, k, v, causal, window,
                 softcap, scale)
     flash_attention_f32.launches += 1

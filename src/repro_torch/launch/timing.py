@@ -10,6 +10,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12        # device memory
 FP32_FLOPS_PER_S = 67e12         # fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # bf16 on the tensor cores, dense
+TF32_FLOPS_PER_S = 494.7e12      # TF32 on the tensor cores, dense
 
 
 def bound(nbytes: int, flops: int, flops_per_s: float = FP32_FLOPS_PER_S

@@ -22,6 +22,7 @@ from repro.nn import layers as jL
 from repro_torch.kernels import ops, ref
 from repro_torch.nn import attention as tA
 from repro_torch.nn import layers as tL
+from _torch_flash_data import SCALE, low_bit_qkv
 
 _TDT = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 # fp32: the same function summed in another order. bf16 inputs: fp32 math
@@ -153,6 +154,103 @@ def test_flash_bf16_tolerance_covers_the_tensor_core_rounding(causal, window, so
     # the plain version itself sits well inside it
     plain = ops.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
     assert bool(((plain.float() - want).abs() <= bound).all())
+
+
+def _tf32_round(x):
+    """x rounded to the nearest TF32, ties away from zero, its low 13
+    mantissa bits cleared in the int32 view, as the kernel does."""
+    return ((x.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+THREE = ("hi.hi", "hi.lo", "lo.hi")
+
+
+def _tf32_product(eq, a, b, terms):
+    """einsum(eq, a, b) as the fp32 kernel takes it on the tensor cores: the
+    sum, in fp32, of the TF32 products in ``terms`` of the split operands
+    (hi = x rounded to TF32, so hi + lo == x exactly for lo = x - hi, which
+    is then rounded to TF32 itself; "one": a single product of a and b
+    rounded to TF32). Each product of two TF32 values is exact in fp32."""
+    if terms == ("one",):
+        return torch.einsum(eq, _tf32_round(a), _tf32_round(b))
+    ah, bh = _tf32_round(a), _tf32_round(b)
+    part = {"hi.hi": (ah, bh), "hi.lo": (ah, _tf32_round(b - bh)),
+            "lo.hi": (_tf32_round(a - ah), bh)}
+    out = torch.einsum(eq, *part[terms[0]])
+    for t in terms[1:]:
+        out = out + torch.einsum(eq, *part[t])
+    return out
+
+
+def _tf32_arithmetic(q, k, v, *, causal, window=None, softcap=None, scale=None,
+                     s_terms=THREE, pv_terms=THREE):
+    """The fp32 flash kernel's arithmetic, on the CPU: q times the scale,
+    S = Q.K^T and O = P.V each through ``_tf32_product``, the softmax and
+    its row sums in fp32."""
+    group = q.shape[2] // k.shape[2]
+    kf = k.repeat_interleave(group, 2)
+    vf = v.repeat_interleave(group, 2)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s = _tf32_product("bqhd,bkhd->bhqk", q * scale, kf, s_terms)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    i = torch.arange(q.shape[1])[:, None]
+    j = torch.arange(k.shape[1])[None, :]
+    keep = torch.ones_like(i == j)
+    if causal:
+        keep &= j <= i
+    if window is not None:
+        keep &= j > i - window
+    s = s.masked_fill(~keep, float("-inf"))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    o = _tf32_product("bhqk,bkhd->bqhd", e, vf, pv_terms)
+    return o / e.sum(-1).transpose(1, 2)[..., None]
+
+
+@pytest.mark.parametrize("s,skv,h,hkv,d,causal,window,softcap", [
+    (160, 160, 4, 2, 32, True, None, None), (160, 160, 4, 2, 128, True, None, None),
+    (160, 130, 4, 1, 128, False, 64, None), (130, 160, 2, 2, 32, True, 40, 50.0),
+    (48, 48, 2, 1, 256, True, None, 30.0)])
+def test_flash_f32_tolerance_needs_three_tf32_products(s, skv, h, hkv, d, causal, window,
+                                                       softcap):
+    """kernels/ref.py::flash_attention_tol's fp32 bound, 1e-5 + 1e-5|ref|,
+    which chip_smoke.py and the card tests hold the fp32 kernel to, admits
+    its 3xTF32 arithmetic against the JAX package's plain attention, and
+    refuses one TF32 product: why the kernel takes three."""
+    (jq, jk, jv), (q, k, v) = _qkv(s + d, 2, s, skv, h, hkv, d, scale=2.0)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    want = _t(jref.flash_attention_ref(jq, jk, jv, **kw))
+    bound = ref.flash_attention_tol(q, k, v, want, **kw)
+    got = _tf32_arithmetic(q, k, v, **kw)
+    err = (got - want).abs()
+    assert bool((err <= bound).all()), (err / bound).max()
+    one = _tf32_arithmetic(q, k, v, **kw, s_terms=("one",), pv_terms=("one",))
+    assert (((one - want).abs() / bound).max()) > 10
+
+
+@pytest.mark.parametrize("dropped", [None, ("S", "hi.lo"), ("S", "lo.hi"), ("PV", "hi.lo"),
+                                     ("PV", "lo.hi")])
+@pytest.mark.parametrize("d", [32, 128])
+def test_flash_f32_low_bit_inputs_need_every_cross_product(d, dropped):
+    """On ``low_bit_qkv``'s inputs, whose answer lives in the bits one TF32
+    product drops, the kernel's three products hold the fp32 bound against
+    the exact answer (the plain version in fp64), and a kernel that drops
+    the hi.lo or the lo.hi product of either matmul misses it: the card
+    test on the same inputs (tests/test_torch_cuda.py) catches such a
+    fault."""
+    q, k, v = low_bit_qkv(d, d=d)
+    want = ref.flash_attention_ref(q.double(), k.double(), v.double(), scale=SCALE)
+    bound = ref.flash_attention_tol(q, k, v, want)
+    terms = {"S": THREE, "PV": THREE}
+    if dropped is not None:
+        terms[dropped[0]] = tuple(t for t in THREE if t != dropped[1])
+    got = _tf32_arithmetic(q, k, v, causal=True, scale=SCALE, s_terms=terms["S"],
+                           pv_terms=terms["PV"])
+    worst = ((got.double() - want).abs() / bound).max().item()
+    if dropped is None:
+        assert worst <= 0.5
+    else:   # 9x (P.V's hi.lo) to 1000x (S's cross terms) the bound
+        assert worst > 4
 
 
 # ------------------------------------------------------------------ layers --

@@ -24,6 +24,7 @@ from repro_torch.models import resnet
 from repro_torch.models import transformer as T
 from repro_torch.train.state import TrainState
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from _torch_flash_data import SCALE, low_bit_qkv
 
 pytestmark = pytest.mark.cuda
 
@@ -223,10 +224,15 @@ def test_tiny_resnet_trains_the_same_on_the_card_and_the_host(cuda):
 
 def assert_flash_close(got, q, k, v, **kw):
     """The kernel's output within ``ref.flash_attention_tol`` of the plain
-    version: fp32 1e-5 + 1e-5|ref|; bf16 adds one bf16 rounding of the
-    output (2^-7|ref|) and of each probability before P . V (2^-8 P.|v|)."""
-    want = ref.flash_attention_ref(q, k, v, **kw).float()
-    err = (got.float() - want).abs()
+    version: fp32 1e-5 + 1e-5|ref| of the exact answer (the plain version
+    in fp64; an fp32 one lies up to 3.4x that bound from it where the
+    logits are large); bf16 adds one bf16 rounding of the output (2^-7|ref|)
+    and of each probability before P . V (2^-8 P.|v|)."""
+    if q.dtype == torch.float32:
+        want = ref.flash_attention_ref(q.double(), k.double(), v.double(), **kw)
+    else:
+        want = ref.flash_attention_ref(q, k, v, **kw).double()
+    err = (got.double() - want).abs()
     bound = ref.flash_attention_tol(q, k, v, want, **kw)
     assert bool((err <= bound).all()), (
         f"max err {err.max().item():.3e}, worst err/bound {(err / bound).max().item():.3f}")
@@ -280,21 +286,62 @@ def test_flash_kernel_window_softcap_scale(cuda, window, softcap, scale, dtype):
 @pytest.mark.parametrize("causal,window,softcap,scale", [
     (True, 100, 50.0, 0.07), (False, None, 30.0, None), (False, 64, None, 0.2)])
 @pytest.mark.parametrize("hkv", [4, 2, 1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_tc_kernel_features_at_every_head_dim(cuda, d, causal, window, softcap,
-                                                    scale, hkv):
-    """The bf16 tensor-core kernel with masks, softcap, scale, ragged S and
-    Skv and H/Hkv of 1, 2 and 4, at each head dim."""
+                                                    scale, hkv, dtype):
+    """Both tensor-core kernels (bf16; fp32 in 3xTF32) with masks, softcap,
+    scale, S = 333 and Skv = 290 (a multiple of no tile) and H/Hkv of 1, 2
+    and 4, at each head dim. fp32 takes q and k at unit scale: at 2x the
+    logits reach ~50 (scale 0.2 at D 256), where the fp32 plain version
+    itself lies up to 3.5x the fp32 bound from the exact answer;
+    ``test_flash_f32_kernel_beats_fp32_where_logits_are_large`` takes those."""
     g_ = _gen(cuda, d + hkv)
     s, skv = 333, 290
-    q = (2 * torch.randn(2, s, 4, d, generator=g_, device=cuda)).to(torch.bfloat16)
-    k = (2 * torch.randn(2, skv, hkv, d, generator=g_, device=cuda)).to(torch.bfloat16)
-    v = torch.randn(2, skv, hkv, d, generator=g_, device=cuda).to(torch.bfloat16)
+    mag = 2.0 if dtype == torch.bfloat16 else 1.0
+    q = (mag * torch.randn(2, s, 4, d, generator=g_, device=cuda)).to(dtype)
+    k = (mag * torch.randn(2, skv, hkv, d, generator=g_, device=cuda)).to(dtype)
+    v = torch.randn(2, skv, hkv, d, generator=g_, device=cuda).to(dtype)
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
-    before = flash_attention_tc.launches
+    before = FLASH_WRAPPER[dtype].launches
     got = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert flash_attention_tc.launches == before + 1
+    assert FLASH_WRAPPER[dtype].launches == before + 1
     assert_flash_close(got, q, k, v, **kw)
+
+
+@pytest.mark.parametrize("s,skv,d,mag,kw", [
+    (300, 300, 128, 3.0, dict(causal=True, window=16)),
+    (333, 290, 256, 2.0, dict(causal=False, window=64, scale=0.2)),
+    (333, 290, 256, 2.0, dict(causal=False, softcap=30.0))])
+def test_flash_f32_kernel_beats_fp32_where_logits_are_large(cuda, s, skv, d, mag, kw):
+    """Where the logits reach 10-50, fp32 arithmetic itself misses the fp32
+    bound: the kernel lies no farther from the exact answer than the fp32
+    plain version does."""
+    g_ = _gen(cuda, d)
+    q = mag * torch.randn(2, s, 4, d, generator=g_, device=cuda)
+    k = mag * torch.randn(2, skv, 2, d, generator=g_, device=cuda)
+    v = torch.randn(2, skv, 2, d, generator=g_, device=cuda)
+    exact = ref.flash_attention_ref(q.double(), k.double(), v.double(), **kw)
+    bound = ref.flash_attention_tol(q, k, v, exact, **kw)
+    got = ops.flash_attention(q, k, v, **kw).double()
+    plain = ref.flash_attention_ref(q, k, v, **kw).double()
+    worst = ((got - exact).abs() / bound).max().item()
+    worst_plain = ((plain - exact).abs() / bound).max().item()
+    assert worst <= worst_plain, (worst, worst_plain)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_flash_f32_kernel_keeps_the_low_bits(cuda, d):
+    """Inputs whose answer lives in the mantissa bits one TF32 product drops
+    (tests/_torch_flash_data.py): the fp32 kernel holds the fp32 bound
+    against the exact answer, which a kernel without the hi.lo or the lo.hi
+    product of either matmul misses by 9x or more."""
+    q, k, v = (x.to(cuda) for x in low_bit_qkv(d, d=d))
+    before = flash_attention_f32.launches
+    got = ops.flash_attention(q, k, v, causal=True, scale=SCALE)
+    torch.cuda.synchronize()
+    assert flash_attention_f32.launches == before + 1
+    assert_flash_close(got, q, k, v, causal=True, scale=SCALE)
 
 
 def _leaves(dev, shapes, seed):
