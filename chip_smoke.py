@@ -23,22 +23,34 @@
    (32 | 64, 1000) fp32 and (4096, 151936) fp32 and bf16; flash through
    ``repro_torch.launch.profile_flash``, the fp32 kernel at the smoke
    config's shape and at the Qwen3-1.7B prefill shape;
-5. trains full-width ResNet-50 at 224 px through ``Trainer.run`` over a
-   two-stage batch-size plan (32 then 64 images a step), and fails on a
-   non-finite loss, a skipped step, a kernel the run did not launch, or
-   LARS launched other than twice a step;
-6. serves full-width Qwen3-1.7B (random weights from seed 0) through
+5. initialises an NCCL process group of one rank (a ``dist.FileStore`` in a
+   temporary directory), builds the 1 x 1 torus grid on it, and checks that
+   ``reduce_scatter_tensor``, ``all_reduce`` and ``all_gather_into_tensor``
+   on the card, in fp32 and bf16, return their input (the strategies skip
+   groups of one, so this is where NCCL itself runs);
+6. trains full-width ResNet-50 at 224 px through ``Trainer.run`` on that
+   grid over a two-stage batch-size plan (32 then 64 images a step), with
+   the gradient sync of ``repro_torch.launch.profile_step.SYNC`` (torus2d,
+   bf16 buckets of 4 MiB: 11 exchanges, whose layout it prints and checks),
+   and fails on a non-finite loss, a skipped step, a kernel the run did not
+   launch, or LARS launched other than twice a step; then prints the ms and
+   kernel launches that ``sync_tree`` takes a step, and the launches of a
+   whole step with and without them;
+7. serves full-width Qwen3-1.7B (random weights from seed 0) through
    ``RequestBatcher`` and ``generate`` at the serve shape of
    ``repro_torch.launch.profile_serve``: 8 prompts of 512-2048 tokens,
    left-padded to 2048, 32 new tokens each, greedy; fails on a non-finite
    logit, on a prefill that does not launch the tensor-core flash kernel
    once a layer (28) or on a decode step that launches it at all;
-7. runs a tiny ResNet two steps, and the Qwen3 and Gemma2 smoke configs
-   (fp32, so the fp32 flash kernel) through ``generate``, on the card and
-   on the CPU from the same weights and inputs, and fails if they
-   disagree;
-8. prints one ``{"kernels": [...]}`` line, the card line again, and as the
-   last line ``{"ok": true, "device": {...}}``.
+8. runs a tiny ResNet two steps (fp32 comm), and the Qwen3 and Gemma2
+   smoke configs (fp32, so the fp32 flash kernel) through ``generate``, on
+   the card and on the CPU from the same weights and inputs, and fails if
+   they disagree; the tiny card run must also equal, bit for bit, the same
+   run with ``sync_tree`` taken out (at one rank the fp32 sync multiplies by
+   1.0 and exchanges nothing);
+9. destroys the process group, and prints one ``{"kernels": [...]}``
+   line, the card line again, and as the last line ``{"ok": true,
+   "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is absent or the port is not
 beside this file. Imports nothing of JAX.
@@ -50,7 +62,9 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import unittest.mock
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -307,6 +321,35 @@ def smoke_card_vs_host(torch) -> int:
     return card_launches
 
 
+def nccl_one_rank(torch, dev, store_dir: str):
+    """An NCCL process group of one rank and the 1 x 1 grid on it; the three
+    collectives of the strategies' xla lowering, on the card, must each
+    return their input."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import topology
+
+    store = dist.FileStore(str(Path(store_dir) / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(minutes=5))
+    grid = topology.select_grid((1,)).build()
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(1 << 20, device=dev).to(dtype)
+        rs, ag, ar = torch.empty_like(x), torch.empty_like(x), x.clone()
+        dist.reduce_scatter_tensor(rs, x.clone())
+        dist.all_reduce(ar)
+        dist.all_gather_into_tensor(ag, x)
+        torch.cuda.synchronize()
+        if not (torch.equal(rs, x) and torch.equal(ar, x) and torch.equal(ag, x)):
+            fail(f"NCCL at one rank changed a {dtype} tensor")
+    print(f"nccl: world {dist.get_world_size()}, backend {dist.get_backend()}, grid "
+          f"{grid.y}x{grid.x} on {grid.device}: reduce_scatter_tensor, all_reduce, "
+          f"all_gather_into_tensor return their input in fp32 and bf16")
+    return grid
+
+
 def main() -> int:
     import torch
 
@@ -314,19 +357,31 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import lars, losses
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as store_dir:
+        try:
+            return run(torch, store_dir)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+
+def run(torch, store_dir: str) -> int:
+    from repro_torch.core import grad_sync, lars, losses
     from repro_torch.core.batch_control import build_plan
     from repro_torch.core.schedules import BatchSchedule, BatchStage
+    from repro_torch.core.topology import TorusGrid
     from repro_torch.data import augment
     from repro_torch.data.synthetic import SyntheticImageNet, generator
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.lars_update import lars_update_cuda
     from repro_torch.kernels.ls_xent import ls_xent_bwd_cuda, ls_xent_fwd_cuda
-    from repro_torch.launch import profile_xent
+    from repro_torch.launch import profile_step, profile_xent
     from repro_torch.launch.timing import FP32_FLOPS_PER_S, bound, eager_ms, graph_ms
     from repro_torch.models import resnet
     from repro_torch.train.state import TrainState
-    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig, make_train_step
 
     card = gpu_line()
     print(f"gpu: {card}")
@@ -455,6 +510,9 @@ def main() -> int:
 
     flash_time = time_flash(torch, gen)
 
+    # -- NCCL at one rank, and the grid the main path syncs over -------------
+    grid = nccl_one_rank(torch, dev, store_dir)
+
     # -- the main path: full-width ResNet-50 over two batch stages ------------
     data = SyntheticImageNet(num_classes=1000, image_size=224, seed=0, device=dev)
 
@@ -462,18 +520,28 @@ def main() -> int:
         images, labels = data.batch(i, gb)
         return augment.augment(generator(dev, 1, i), images, (224, 224)), labels
 
-    def loss_fn(params, batch):
+    def loss_fn(params, batch, grid):
         images, labels = batch
-        logits = resnet.apply(model, images, params=params)
+        logits = resnet.apply(model, images, params=params, grid=grid)
         return (losses.label_smoothing_xent(logits, labels, SMOOTHING),
                 torch.zeros((), device=dev))
+
+    sync = profile_step.SYNC
+    layout = grad_sync.bucket_layout(dict(model.named_parameters()), sync)
+    sizes = {g: [b["nbytes"] for b in layout if b["group"] == g] for g in ("comm", "fp32")}
+    print(f"grad sync: {sync.strategy} ({sync.lowering}), {len(layout)} exchanges, "
+          f"bf16 {len(sizes['comm'])} buckets {sum(sizes['comm'])} B, fp32 "
+          f"{len(sizes['fp32'])} {sum(sizes['fp32'])} B; first bucket "
+          f"{layout[0]['paths'][:3]}")
+    if (len(layout), sum(sizes["comm"]), sum(sizes["fp32"])) != (11, 51_005_824, 216_480):
+        fail("the ResNet-50 bucket layout is not 11 exchanges of 51,005,824 + 216,480 B")
 
     sched = BatchSchedule((BatchStage(0, 1, 32), BatchStage(1, 2, 64)))
     plan = build_plan(sched, dataset_size=256, n_workers=1, max_steps=12)
     print("plan: " + ", ".join(f"{s.num_steps} steps at {s.global_batch}"
                                for s in plan.stages))
-    trainer = Trainer(loss_fn=loss_fn, cfg=TrainerConfig(schedule="B", log_every=1),
-                      plan=plan, data_fn=data_fn)
+    tcfg = TrainerConfig(schedule="B", log_every=1, grad_sync=sync)
+    trainer = Trainer(loss_fn=loss_fn, cfg=tcfg, plan=plan, data_fn=data_fn, grid=grid)
     state = TrainState.create(dict(model.named_parameters()))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -506,6 +574,24 @@ def main() -> int:
               f"steady median (first step excluded) "
               f"{1e3 * statistics.median(walls[1:]):.2f} ms")
 
+    # the sync's share of a step at 64 images, and the step's launches
+    gb = plan.stages[-1].global_batch
+    batch = data_fn(0, gb)
+    step = make_train_step(loss_fn, tcfg, grid)
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], m = step(holder["state"], batch, 1.0, gb)
+
+    grads = {k: 1e-3 * torch.randn_like(p) for k, p in state.params.items()}
+    sync_t = profile_step.sync_split(grads, grid, sync)
+    step_launches = profile_step.kernel_launches(one_step)
+    print(f"sync_tree a step (host clock between synchronises, median of "
+          f"{len(sync_t['wall_ms_runs'])}): {sync_t['wall_ms']:.3f} ms, "
+          f"{sync_t['launches']} kernel launches; launches a step at {gb} images: "
+          f"{step_launches} with the sync, {step_launches - sync_t['launches']} without it")
+    ops.reset_launch_counts()
+
     # -- the serve path: full-width Qwen3-1.7B --------------------------------
     serve = serve_qwen3(torch, dev)
 
@@ -516,16 +602,25 @@ def main() -> int:
     tdata = SyntheticImageNet(num_classes=10, image_size=32, seed=2, device="cpu")
     tplan = build_plan(BatchSchedule((BatchStage(0, 1, 8),)), dataset_size=16,
                        n_workers=1)
-    finals, tlosses = {}, {}
-    for d, m in tmodel.items():
-        def tloss(params, batch, m=m):
+    tcfg = TrainerConfig(log_every=1,
+                         grad_sync=grad_sync.GradSyncConfig(comm_dtype=torch.float32))
+
+    def tiny_run(d):
+        m = tmodel[d]
+
+        def tloss(params, batch, grid):
             return (losses.label_smoothing_xent(
-                resnet.apply(m, batch[0], params=params), batch[1], SMOOTHING),
+                resnet.apply(m, batch[0], params=params, grid=grid), batch[1], SMOOTHING),
                 torch.zeros((), device=batch[0].device))
-        tr = Trainer(loss_fn=tloss, cfg=TrainerConfig(log_every=1), plan=tplan,
-                     data_fn=lambda i, gb, d=d: tuple(t.to(d) for t in tdata.batch(i, gb)))
+        tr = Trainer(loss_fn=tloss, cfg=tcfg, plan=tplan,
+                     data_fn=lambda i, gb: tuple(t.to(d) for t in tdata.batch(i, gb)),
+                     grid=grid if d == "cuda" else TorusGrid())
         st, hist = tr.run(TrainState.create(dict(m.named_parameters())), log=lambda s: None)
-        finals[d], tlosses[d] = st.params, [h["loss"] for h in hist]
+        return st.params, [h["loss"] for h in hist]
+
+    finals, tlosses = {}, {}
+    for d in ("cpu", "cuda"):
+        finals[d], tlosses[d] = tiny_run(d)
     p_err = max((finals["cuda"][k].cpu() - v).abs().max().item()
                 for k, v in finals["cpu"].items())
     l_err = max(abs(a - b) / max(abs(b), 1.0)
@@ -534,6 +629,16 @@ def main() -> int:
           f"params max_abs_err {p_err:.3e} (tol {TINY_TOL:g})")
     if not (l_err <= TINY_TOL and p_err <= TINY_TOL):
         fail("tiny ResNet on the card disagrees with the host")
+    # at one rank the fp32 sync is the identity: the run equals, bit for
+    # bit, the same run with sync_tree taken out
+    with unittest.mock.patch.object(grad_sync, "sync_tree", lambda g, grid, cfg: g):
+        unsynced, unsynced_losses = tiny_run("cuda")
+    same = (unsynced_losses == tlosses["cuda"]
+            and all(torch.equal(unsynced[k], v) for k, v in finals["cuda"].items()))
+    print(f"tiny resnet on the card through sync_tree (fp32 comm, 1 rank) vs without it: "
+          f"{'bit-identical' if same else 'DIFFERENT'}")
+    if not same:
+        fail("the fp32 sync at one rank changed the tiny ResNet's run")
     f32_launches = smoke_card_vs_host(torch)
 
     # -- report ---------------------------------------------------------------

@@ -77,6 +77,24 @@ def transformer_from_jax(tree, cfg, device=None) -> dict[str, torch.Tensor]:
     return params_from_jax(flat, device)
 
 
+def _jax_key(component: str):
+    # an all-digit component is a list index (``_listify``)
+    return (0, int(component), "") if component.isdigit() else (1, 0, component)
+
+
+def jax_order(names) -> list[str]:
+    """The port's names in the order ``jax.tree_util`` flattens the tree
+    that ``params_to_jax`` builds from them: dict keys sorted, list indices
+    by number (``stages.10`` after ``stages.9``)."""
+    return sorted(names, key=lambda n: tuple(_jax_key(c) for c in n.split(".")))
+
+
+def jax_path(name: str) -> str:
+    """The JAX package's path string of a leaf (``_path_str`` of
+    ``repro/core/grad_sync.py``): ``stages/0/1/conv1/kernel``."""
+    return name.replace(".", "/").lower()
+
+
 def _listify(node):
     if not isinstance(node, dict):
         return node

@@ -26,8 +26,12 @@ def label_smoothing_xent(logits: torch.Tensor, labels: torch.Tensor,
     """Mean smoothed cross-entropy.
 
     logits: (..., K) float; labels: (...) int. ``where``: optional bool mask
-    over the batch positions (padding).
+    over the batch positions (padding). A masked position's label may lie
+    outside [0, K) (a pad id): the kernel sees class 0 there instead, so the
+    row's loss is finite and its gradient 0 on both devices.
     """
+    if where is not None:
+        labels = torch.where(where, labels, torch.zeros_like(labels))
     per = kops.ls_xent(logits, labels, smoothing=smoothing)
     if where is not None:
         per = torch.where(where, per, torch.zeros_like(per))

@@ -69,13 +69,20 @@ def ls_xent_fwd_ref(logits: torch.Tensor, labels: torch.Tensor,
                     smoothing: float):
     """The forward kernel's outputs: per-row (loss, lse), fp32.
 
-    loss = (1-a)*(lse - x_y) - a*(mean(x) - lse): the smoothed NLL.
+    loss = (1-a)*(lse - x_y) - a*(mean(x) - lse): the smoothed NLL; NaN in
+    a row whose label lies outside [0, V), as the kernel gives.
     """
     x = logits.float()
     lse = torch.logsumexp(x, dim=-1)
-    x_y = torch.gather(x, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    bad = _bad_labels(labels, x.shape[-1])
+    safe = torch.where(bad, torch.zeros_like(labels), labels).long()
+    x_y = torch.gather(x, -1, safe.unsqueeze(-1)).squeeze(-1)
     loss = (1.0 - smoothing) * (lse - x_y) - smoothing * (x.mean(dim=-1) - lse)
-    return loss, lse
+    return torch.where(bad, float("nan"), loss), lse
+
+
+def _bad_labels(labels: torch.Tensor, vocab: int) -> torch.Tensor:
+    return (labels < 0) | (labels >= vocab)
 
 
 def ls_xent_ref(logits: torch.Tensor, labels: torch.Tensor,
@@ -87,14 +94,16 @@ def ls_xent_ref(logits: torch.Tensor, labels: torch.Tensor,
 def ls_xent_bwd_ref(logits: torch.Tensor, labels: torch.Tensor,
                     lse: torch.Tensor, gout: torch.Tensor,
                     smoothing: float) -> torch.Tensor:
-    """dlogits = gout * (softmax - (1-a)*onehot(y) - a/V), in logits' dtype."""
+    """dlogits = gout * (softmax - (1-a)*onehot(y) - a/V), in logits' dtype;
+    NaN over a row whose label lies outside [0, V), whatever its gout, as
+    the kernel gives."""
     x = logits.float()
     vocab = x.shape[-1]
     p = torch.exp(x - lse.unsqueeze(-1))
     cols = torch.arange(vocab, device=x.device)
     hit = (cols == labels.long().unsqueeze(-1)).to(x.dtype)
-    d = gout.float().unsqueeze(-1) * (p - smoothing / vocab
-                                      - (1.0 - smoothing) * hit)
+    go = torch.where(_bad_labels(labels, vocab), float("nan"), gout.float())
+    d = go.unsqueeze(-1) * (p - smoothing / vocab - (1.0 - smoothing) * hit)
     return d.to(logits.dtype)
 
 

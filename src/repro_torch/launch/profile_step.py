@@ -5,11 +5,13 @@
 
 Trains full-width ResNet-50 at 224 px through the port's ``make_train_step``
 at each per-step batch of the two-stage plan that ``chip_smoke.py`` runs (32
-and 64 images), and reports for each batch:
+and 64 images), on one rank (the 1 x 1 grid, so the gradient sync casts the
+bf16 buckets and exchanges nothing), and reports for each batch:
 
 - step wall time (host clock around a step that ends in a synchronise),
-  and the same split into forward, forward+backward and the LARS update,
-  each timed alone between synchronises;
+  and the same split into forward, forward+backward, the gradient sync
+  (``core/grad_sync.py:sync_tree`` with ``SYNC``) and the LARS update, each
+  timed alone between synchronises;
 - from ``torch.profiler`` over ``--steps`` steady steps: the device busy
   share (summed kernel time over wall time; one stream, so kernels do not
   overlap), kernel launches per step, and device time by kernel class.
@@ -31,12 +33,17 @@ from pathlib import Path
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.core import lars, losses
+from repro_torch.core import grad_sync, lars, losses
+from repro_torch.core.topology import TorusGrid
 from repro_torch.data import augment
 from repro_torch.data.synthetic import SyntheticImageNet, generator
 from repro_torch.models import resnet
 from repro_torch.train.state import TrainState
 from repro_torch.train.trainer import TrainerConfig, make_train_step
+
+# the main path's gradient sync: the paper's 2D torus, bf16 buckets of 4 MiB
+SYNC = grad_sync.GradSyncConfig(strategy="torus2d", comm_dtype=torch.bfloat16,
+                                bucket_bytes=4 << 20)
 
 # kernel-name fragments -> class, first match wins
 CLASSES = (
@@ -97,6 +104,25 @@ def timed(fn, n: int) -> list[float]:
     return out
 
 
+def kernel_launches(fn) -> int:
+    """CUDA kernels that one ``fn()`` launches, counted by torch.profiler."""
+    fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return device_time(prof)[1]
+
+
+def sync_split(grads: dict, grid: TorusGrid, cfg=SYNC, reps: int = 5) -> dict:
+    """``sync_tree`` of ``grads`` alone: wall ms (host clock between
+    synchronises, median of ``reps``) and kernel launches."""
+    def fn():
+        grad_sync.sync_tree(grads, grid, cfg)
+    walls = timed(fn, reps)
+    return {"wall_ms": statistics.median(walls), "wall_ms_runs": walls,
+            "launches": kernel_launches(fn)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
@@ -112,14 +138,15 @@ def main() -> int:
     cfg = resnet.ResNetConfig.resnet50(num_classes=1000, image_size=224)
     model = resnet.init(cfg, seed=0)
     data = SyntheticImageNet(num_classes=1000, image_size=224, seed=0, device=dev)
-    tcfg = TrainerConfig(schedule="B")
+    tcfg = TrainerConfig(schedule="B", grad_sync=SYNC)
+    grid = TorusGrid()
 
-    def loss_fn(params, batch):
+    def loss_fn(params, batch, grid=grid):
         images, labels = batch
-        logits = resnet.apply(model, images, params=params)
+        logits = resnet.apply(model, images, params=params, grid=grid)
         return losses.label_smoothing_xent(logits, labels, 0.1), torch.zeros((), device=dev)
 
-    step = make_train_step(loss_fn, tcfg)
+    step = make_train_step(loss_fn, tcfg, grid)
     result = {"gpu": card, "torch": torch.__version__, "batches": {}}
     for gb in (32, 64):
         images, labels = data.batch(0, gb)
@@ -148,9 +175,12 @@ def main() -> int:
                         lr=1.0, momentum=0.9, cfg=tcfg.lars)
 
         timed(one_step, args.warmup)
+        def sync_only():
+            grad_sync.sync_tree(grads, grid, SYNC)
+
         walls = {name: timed(fn, 5) for name, fn in
                  (("step", one_step), ("forward", fwd), ("forward_backward", fwd_bwd),
-                  ("lars_update", lars_only))}
+                  ("grad_sync", sync_only), ("lars_update", lars_only))}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -168,6 +198,7 @@ def main() -> int:
             "device_busy_ms_per_step": busy_ms / args.steps,
             "device_busy_share": busy_ms / window_ms if window_ms else None,
             "kernel_launches_per_step": launches / args.steps,
+            "grad_sync_launches": kernel_launches(sync_only),
             "device_ms_per_step_by_class": {k: v / args.steps for k, v in
                                             sorted(by_class.items(), key=lambda kv: -kv[1])},
             "top_kernels_ms_per_step": [(round(ms / args.steps, 4), n // args.steps, k)

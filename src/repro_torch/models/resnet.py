@@ -70,12 +70,12 @@ class Bottleneck(nn.Module):
             self.proj = L.Conv(gen, 1, 1, cin, cout, stride=stride)
             self.bn_proj = L.BatchNorm(cout, device=dev)
 
-    def forward(self, x, stats=None, collect=False):
+    def forward(self, x, stats=None, collect=False, grid=None):
         sts = {}
 
         def bn(name, h):
             st = None if stats is None else stats[name]
-            out = getattr(self, name)(h, stats=st, return_stats=collect)
+            out = getattr(self, name)(h, stats=st, return_stats=collect, grid=grid)
             if collect:
                 out, sts[name] = out
             return out
@@ -107,19 +107,21 @@ class ResNet(nn.Module):
         self.head = L.Dense(gen, cin, cfg.num_classes)
 
     def forward(self, images: torch.Tensor, stats=None,
-                collect_stats: bool = False):
+                collect_stats: bool = False, grid=None):
         """images: (B, H, W, 3) -> logits (B, K) fp32.
 
         ``stats``: per-BN (mean, var) for eval, nested as the JAX package's
         ``{"stem": {"bn": ...}, "stages": [[{"bn1": ...}, ...], ...]}``;
         ``collect_stats`` returns (logits, stats) -- the calibration pass.
+        ``grid``: a built ``core.topology.TorusGrid`` whose ranks' BN
+        moments are averaged (the JAX package's ``dp_axes``).
         """
         x = images.to(self.cfg.compute_dtype).permute(0, 3, 1, 2)
         all_stats = {"stem": {}, "stages": []}
 
         st = None if stats is None else stats["stem"].get("bn")
         out = self.stem.bn(self.stem.conv(x), stats=st,
-                           return_stats=collect_stats)
+                           return_stats=collect_stats, grid=grid)
         if collect_stats:
             out, all_stats["stem"]["bn"] = out
         h = L.max_pool(F.relu(out), 3, 2)
@@ -128,7 +130,7 @@ class ResNet(nn.Module):
             stage_stats = []
             for bi, block in enumerate(blocks):
                 bst = None if stats is None else stats["stages"][si][bi]
-                out = block(h, stats=bst, collect=collect_stats)
+                out = block(h, stats=bst, collect=collect_stats, grid=grid)
                 if collect_stats:
                     h, s = out
                     stage_stats.append(s)
@@ -148,10 +150,12 @@ def init(cfg: ResNetConfig, *, seed: int = 0, device=None) -> ResNet:
 
 
 def apply(model: ResNet, images: torch.Tensor, *, params=None, stats=None,
-          collect_stats: bool = False):
+          collect_stats: bool = False, grid=None):
     """``model(images)``, or with ``params`` ({name: tensor}) in place of
-    the module's own -- the functional form the train step differentiates."""
-    kwargs = {"stats": stats, "collect_stats": collect_stats}
+    the module's own -- the functional form the train step differentiates.
+    ``grid`` syncs BN moments over its ranks, as the JAX package's
+    ``dp_axes``."""
+    kwargs = {"stats": stats, "collect_stats": collect_stats, "grid": grid}
     if params is None:
         return model(images, **kwargs)
     return functional_call(model, params, (images,), kwargs)

@@ -17,6 +17,7 @@ the JAX model does.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -63,14 +64,37 @@ def dense(x: torch.Tensor, kernel: torch.Tensor,
     return y
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a process group, forward and backward: the cotangent of
+    each rank's input is the sum of every rank's output cotangent, as
+    ``jax.grad`` of ``lax.psum`` inside ``shard_map`` gives it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 def batchnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
-              stats=None, eps: float = 1e-5, return_stats: bool = False):
+              stats=None, grid=None, eps: float = 1e-5, return_stats: bool = False):
     """BN "without moving average" (paper §3.2 / Akiba et al. [5]), channel
     dim 1.
 
-    Train: batch mean and variance in fp32, the variance as E[x^2] - mean^2
-    (the form whose two moments the data-parallel version averages across
-    ranks). Eval: ``stats`` = (mean, var) from a calibration pass.
+    Train: batch mean and variance in fp32, the variance as E[x^2] - mean^2.
+    With ``grid`` (a built ``core.topology.TorusGrid``) of more than one
+    rank, the mean and squared mean are averaged over all its ranks in fp32
+    ("communication to synchronize batch mean and batch squared mean was
+    conducted in FP32"), one all-reduce for both, gradients included, as
+    the JAX package's ``dp_axes``. Eval: ``stats`` = (mean, var) from a
+    calibration pass.
     """
     axes = [d for d in range(x.dim()) if d != 1]
     xf = x.float()
@@ -79,6 +103,10 @@ def batchnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     else:
         mean = xf.mean(axes)
         sq = (xf * xf).mean(axes)
+        if grid is not None and grid.size > 1:
+            moments = _AllReduceSum.apply(torch.stack([mean, sq]), grid.world.group)
+            mean, sq = moments.unbind(0)
+            mean, sq = mean / grid.size, sq / grid.size
         var = sq - mean * mean
     shape = [1] * x.dim()
     shape[1] = -1
@@ -186,9 +214,9 @@ class BatchNorm(nn.Module):
         self.bn_bias = nn.Parameter(torch.zeros(dim, dtype=torch.float32,
                                                 device=device))
 
-    def forward(self, x, stats=None, return_stats=False):
+    def forward(self, x, stats=None, return_stats=False, grid=None):
         return batchnorm(x, cast(self.bn_scale, x.dtype),
-                         cast(self.bn_bias, x.dtype), stats=stats,
+                         cast(self.bn_bias, x.dtype), stats=stats, grid=grid,
                          return_stats=return_stats)
 
 

@@ -13,6 +13,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.core import losses
 from repro_torch.core.batch_control import build_plan
+from repro_torch.core.grad_sync import GradSyncConfig
 from repro_torch.core.schedules import BatchSchedule, BatchStage
 from repro_torch.data.synthetic import SyntheticImageNet
 from repro_torch.kernels import ls_xent, ops, ref
@@ -150,6 +151,29 @@ def test_ls_xent_label_outside_the_vocab_gives_nan(cuda, vocab):
     assert torch.isfinite(d[0]).all() and torch.isnan(d[1:]).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad", [-1, 10])
+def test_masked_pad_label_gives_a_finite_loss_and_zero_gradient(cuda, dtype, pad):
+    """A row masked by ``where`` may carry a pad label outside [0, V): the
+    loss and gradients equal the host's, finite, and 0 on that row."""
+    g_ = _gen(torch.device("cpu"), 0)
+    x = torch.randn(4, 10, generator=g_).to(dtype)
+    y = torch.tensor([1, 2, pad, 3])
+    where = torch.tensor([True, True, False, True])
+    out = []
+    for dev in ("cpu", cuda):
+        xd = x.to(dev, copy=True).requires_grad_(True)
+        loss = losses.label_smoothing_xent(xd, y.to(dev), 0.1, where=where.to(dev))
+        loss.backward()
+        out.append((loss.detach().cpu(), xd.grad.float().cpu()))
+    (l_host, g_host), (l_card, g_card) = out
+    assert torch.isfinite(l_card) and torch.isfinite(g_card).all()
+    assert torch.equal(g_card[2], torch.zeros(10))
+    torch.testing.assert_close(l_card, l_host, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(g_card, g_host, rtol=2 ** -7 if dtype == torch.bfloat16
+                               else 1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("vocab,dtype", [(1000, torch.float32), (151936, torch.bfloat16)])
 def test_label_smoothing_xent_launches_each_kernel_once(cuda, vocab, dtype):
     x = torch.randn(2, 8, vocab, device=cuda).to(dtype).requires_grad_(True)
@@ -201,10 +225,12 @@ def test_tiny_resnet_trains_the_same_on_the_card_and_the_host(cuda):
     ops.reset_launch_counts()
     out = {}
     for d, m in models.items():
-        def loss_fn(params, batch, m=m):
-            logits = resnet.apply(m, batch[0], params=params)
+        def loss_fn(params, batch, grid, m=m):
+            logits = resnet.apply(m, batch[0], params=params, grid=grid)
             return losses.label_smoothing_xent(logits, batch[1], 0.1), torch.zeros(())
-        trainer = Trainer(loss_fn, TrainerConfig(log_every=1), plan,
+        # fp32 comm: at one rank the sync is then the identity on both devices
+        cfg = TrainerConfig(log_every=1, grad_sync=GradSyncConfig(comm_dtype=torch.float32))
+        trainer = Trainer(loss_fn, cfg, plan,
                           lambda i, gb, d=d: tuple(t.to(d) for t in data.batch(i, gb)))
         state, hist = trainer.run(TrainState.create(dict(m.named_parameters())),
                                   log=lambda s: None)

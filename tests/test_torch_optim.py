@@ -106,6 +106,35 @@ def test_label_smoothing_xent_where_mask_matches():
     assert got.item() == 0.0
 
 
+@pytest.mark.parametrize("pad", [-1, 10])
+def test_masked_pad_label_matches_the_reference(pad):
+    """A row masked by ``where`` with a pad label outside [0, V): the loss
+    and its gradient equal ``jax.value_and_grad`` of the reference (which
+    never reads the label of a masked row), finite, 0 on that row."""
+    x = np.random.RandomState(0).randn(4, 10).astype(np.float32)
+    y = np.array([1, 2, pad, 3])
+    where = np.array([True, True, False, True])
+    want, want_g = jax.value_and_grad(lambda l: jlosses.label_smoothing_xent(
+        l, jnp.asarray(y), 0.1, where=jnp.asarray(where)))(jnp.asarray(x))
+    np.testing.assert_allclose(float(want), 3.2039583, rtol=1e-7)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    got = tlosses.label_smoothing_xent(tx, torch.from_numpy(y), 0.1,
+                                       where=torch.from_numpy(where))
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_g), rtol=1e-5, atol=1e-7)
+    assert torch.isfinite(tx.grad).all() and torch.equal(tx.grad[2], torch.zeros(10))
+
+
+def test_unmasked_label_outside_the_vocab_gives_nan_as_the_kernel_does():
+    x = torch.randn(3, 10, generator=torch.Generator().manual_seed(0)).requires_grad_(True)
+    y = torch.tensor([1, 10, -1])
+    per = tlosses.kops.ls_xent(x, y, smoothing=0.1)
+    assert torch.isfinite(per[0]) and torch.isnan(per[1:]).all()
+    per.sum().backward()
+    assert torch.isfinite(x.grad[0]).all() and torch.isnan(x.grad[1:]).all()
+
+
 def test_softmax_xent_top1_and_ls_xent_ref_match():
     x, y = _logits_labels(3)
     tx, ty = torch.from_numpy(x), torch.from_numpy(y)

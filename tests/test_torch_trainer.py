@@ -40,9 +40,9 @@ def _tiny_torch(seed=0):
 
 
 def _torch_loss(model):
-    def loss_fn(params, batch):
+    def loss_fn(params, batch, grid):
         images, labels = batch
-        logits = tresnet.apply(model, images, params=params)
+        logits = tresnet.apply(model, images, params=params, grid=grid)
         return tlosses.label_smoothing_xent(logits, labels, 0.1), torch.zeros(())
     return loss_fn
 
@@ -143,13 +143,6 @@ def test_trainer_runs_both_batch_stages():
     assert [h["step"] for h in short] == [1, 2, 3]
 
 
-def test_make_train_step_refuses_several_ranks(monkeypatch):
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 4)
-    with pytest.raises(RuntimeError, match="gradient sync"):
-        ttrainer.make_train_step(lambda p, b: None, ttrainer.TrainerConfig())
-
-
 def test_entry_points_without_a_device_refuse_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -170,6 +163,9 @@ def test_port_imports_neither_jax_nor_repro():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
+        "want = {'repro_torch.core.' + m for m in\n"
+        "        ('topology', 'collectives', 'grad_sync', 'autotune')}\n"
+        "assert want <= set(sys.modules), want - set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=f"{REPO / 'src'}{os.pathsep}{REPO}")
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
