@@ -34,8 +34,22 @@
    bf16 buckets of 4 MiB: 11 exchanges, whose layout it prints and checks),
    and fails on a non-finite loss, a skipped step, a kernel the run did not
    launch, or LARS launched other than twice a step; then prints the ms and
-   kernel launches that ``sync_tree`` takes a step, and the launches of a
-   whole step with and without them;
+   kernel launches that ``sync_tree`` takes a step, the launches of a whole
+   step with and without them, and the host time of the telemetry that
+   ``Trainer.run`` records a step (its spans and metrics: the loop is the
+   supervised one, with telemetry on, no checkpoint directory, no faults);
+   then, on the same model, plan and sync, with cuDNN deterministic and
+   not autotuning, drives the supervised trainer: a clean run with
+   checkpoints every 4 steps and its metrics JSONL and Chrome trace; a
+   chaos run (a transient data failure at step 2, the first checkpoint
+   write crashed once, NaN batches at steps 5-7 under
+   ``ElasticConfig(max_consecutive_nonfinite=3)``) that must recover once
+   and end bit-identical to the clean run; a run stopped at step 6 and
+   resumed, also bit-identical; a ``torch_profile`` window of 2 steps whose
+   trace must name the LARS and ``ls_xent`` kernels; and times the
+   checkpoint layer (snapshot to host, CRC32, sync save, the async writer's
+   save, validate, restore on the card and on the host), failing unless a
+   checkpoint written on the card restores on the host as it was;
 7. serves full-width Qwen3-1.7B (random weights from seed 0) through
    ``RequestBatcher`` and ``generate`` at the serve shape of
    ``repro_torch.launch.profile_serve``: 8 prompts of 512-2048 tokens,
@@ -59,6 +73,7 @@ beside this file. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -350,6 +365,215 @@ def nccl_one_rank(torch, dev, store_dir: str):
     return grid
 
 
+def telemetry_cost_us(n_iters: int = 2000) -> float:
+    """Host microseconds of the telemetry a step of ``Trainer.run`` records
+    (its six spans, three histograms, a counter, a gauge), with no sink:
+    the main phase's setting."""
+    from repro_torch.obs import ObsConfig, Telemetry
+
+    tel = Telemetry(ObsConfig())
+    reg = tel.registry
+    t0 = time.perf_counter()
+    for k in range(n_iters):
+        with tel.span("step", step=k) as sp:
+            for name in ("data", "dispatch", "sync_wait", "log", "checkpoint"):
+                with tel.span(name, step=k):
+                    pass
+        reg.histogram("step/wall_s").observe(sp.duration)
+        reg.histogram("step/data_s").observe(0.0)
+        reg.histogram("step/sync_wait_s").observe(0.0)
+        reg.counter("train/steps").inc()
+        reg.gauge("train/loss_scale").set(1.0)
+    return 1e6 * (time.perf_counter() - t0) / n_iters
+
+
+def supervised(torch, grid, model, data_fn, loss_fn, plan, sync, card: str) -> dict:
+    """The supervised trainer at full width, deterministic (cuDNN
+    deterministic, no autotuning; the port's kernels repeat bit for bit):
+    a clean run with telemetry and checkpoints, a chaos run that recovers
+    once, a run stopped at step 6 and resumed, the checkpoint layer timed,
+    a checkpoint restored on the host, and a ``torch_profile`` window.
+    Fails unless the chaos and resumed runs end bit-identical to the clean
+    one. Returns the kernels' launches over the phase and its numbers."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.obs import ObsConfig, read_run
+    from repro_torch.testing.chaos import FaultPlan
+    from repro_torch.train import checkpoint
+    from repro_torch.train.elastic import ElasticConfig
+    from repro_torch.train.state import TrainState
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    def trainer(ckpt_dir=None, faults=None, elastic=ElasticConfig(), obs=ObsConfig()):
+        cfg = TrainerConfig(schedule="B", log_every=1, grad_sync=sync, ckpt_every_steps=4,
+                            ckpt_keep_last=2, elastic=elastic, obs=obs)
+        return Trainer(loss_fn=loss_fn, cfg=cfg, plan=plan, data_fn=data_fn, grid=grid,
+                       checkpoint_dir=ckpt_dir, fault_plan=faults)
+
+    def fresh():
+        return TrainState.create(dict(model.named_parameters()))
+
+    def same(a, b) -> bool:
+        return all(torch.equal(a.params[k], b.params[k]) and torch.equal(
+            a.opt_state["momentum"][k], b.opt_state["momentum"][k]) for k in a.params)
+
+    def recoveries(metrics_path) -> float:
+        summary = [r for r in read_run(metrics_path) if r["kind"] == "summary"][-1]
+        return summary["metrics"].get("elastic/recoveries", {"value": 0.0})["value"]
+
+    quiet = lambda s: None  # noqa: E731
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            obs = ObsConfig(metrics_path=str(tmp / "clean.jsonl"),
+                            trace_path=str(tmp / "clean_trace.json"))
+            clean, clean_hist = trainer(str(tmp / "clean"), obs=obs).run(fresh(), log=quiet)
+            clean_s = time.perf_counter() - t0
+            faults = FaultPlan(data_fail_steps=(2,), ckpt_crash_writes=(0,),
+                               nan_grad_steps=(5, 6, 7), grad_fault_once=True)
+            t0 = time.perf_counter()
+            chaos, chaos_hist = trainer(
+                str(tmp / "chaos"), faults, ElasticConfig(max_consecutive_nonfinite=3),
+                ObsConfig(metrics_path=str(tmp / "chaos.jsonl"))).run(fresh(), log=quiet)
+            chaos_s = time.perf_counter() - t0
+            trainer(str(tmp / "resume")).run(fresh(), max_steps=6, log=quiet)
+            resumed, resumed_hist = trainer(str(tmp / "resume")).run(fresh(), resume=True,
+                                                                     log=quiet)
+            profiled, _ = trainer(obs=ObsConfig(torch_profile_dir=str(tmp / "prof"))).run(
+                fresh(), max_steps=2, log=quiet)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+
+            events = [h for h in chaos_hist if "event" in h]
+            for h in events:
+                print(f"supervised chaos event: {json.dumps(h)}")
+            rows = {name: [h for h in hist if h["kind"] == "metric"]
+                    for name, hist in (("clean", clean_hist), ("chaos", chaos_hist),
+                                       ("resumed", resumed_hist))}
+            steps_run = {"clean": 12, "chaos": len(rows["chaos"]), "part": 6,
+                         "resumed": len(rows["resumed"]), "profiled": 2}
+            total = sum(steps_run.values())
+            rec = {"clean": recoveries(obs.metrics_path),
+                   "chaos": recoveries(str(tmp / "chaos.jsonl"))}
+            verdict = {"chaos": same(chaos, clean), "resumed": same(resumed, clean)}
+            resume_at = [h["step"] for h in resumed_hist if h.get("event") == "resume"]
+            skipped = [h["step"] for h in rows["chaos"] if h["skipped"]]
+            print(f"supervised ({card}): clean run {clean_s:.2f} s, chaos run {chaos_s:.2f} s; "
+                  f"steps run {steps_run}; chaos skipped steps {skipped}; "
+                  f"elastic/recoveries clean {rec['clean']:g}, chaos {rec['chaos']:g}; "
+                  f"resumed from step {resume_at}; chaos == clean "
+                  f"{verdict['chaos']}, resumed == clean {verdict['resumed']}; "
+                  f"launches {counts}")
+            if (clean.step, chaos.step, resumed.step, profiled.step) != (12, 12, 12, 2):
+                fail("a supervised run did not end at its last step")
+            if rec != {"clean": 0.0, "chaos": 1.0}:
+                fail(f"elastic/recoveries {rec}, want clean 0 and chaos 1")
+            if skipped != [6, 7, 8] or resume_at != [4] or steps_run["chaos"] != 16:
+                fail(f"chaos skipped {skipped}, {steps_run['chaos']} steps; resumed at "
+                     f"{resume_at}")
+            if not all(verdict.values()):
+                fail(f"the chaos or resumed run differs from the clean run: {verdict}")
+            want = {"lars_update": 2 * total, "ls_xent_fwd": total, "ls_xent_bwd": total,
+                    "flash_attn": 0, "flash_attn_f32": 0}
+            if counts != want:
+                fail(f"supervised launches {counts}, want {want}")
+
+            # telemetry: the JSONL and the Chrome trace, read back
+            recs = read_run(obs.metrics_path)
+            phases = [r for r in recs if r.get("metric") == "step_phases"]
+            cover = [sum(r["phases"].values()) / r["wall_s"] for r in phases]
+            trace = json.load(open(obs.trace_path))["traceEvents"]
+            span_ms = {name: 1e3 * statistics.median(r["phases"][name] for r in phases)
+                       for name in phases[0]["phases"]}
+            span_ms["step"] = 1e3 * statistics.median(r["wall_s"] for r in phases)
+            print(f"supervised telemetry ({card}): {len(recs)} JSONL rows, {len(phases)} "
+                  f"step_phases rows, phases / wall_s {min(cover):.4f}-{max(cover):.4f}, "
+                  f"{len(trace)} trace events; span medians ms "
+                  + json.dumps({k: round(v, 4) for k, v in span_ms.items()})
+                  + "; each step's wall / dispatch / checkpoint ms "
+                  + json.dumps([[r["step"], round(1e3 * r["wall_s"], 2),
+                                 round(1e3 * r["phases"]["dispatch"], 2),
+                                 round(1e3 * r["phases"]["checkpoint"], 2)] for r in phases]))
+            if len(phases) != 12 or not all(0.9 <= c <= 1.02 for c in cover):
+                fail("the clean run's step phases do not cover its steps' wall time")
+            if sum(e["name"] == "step" for e in trace) != 12:
+                fail("the Chrome trace does not hold the clean run's 12 steps")
+
+            # the profiler window: the kernels on the device's timeline
+            prof = json.load(open(tmp / "prof" / "torch_trace_rank0.json"))["traceEvents"]
+            kernels = [e["name"] for e in prof if e.get("cat") == "kernel"]
+            named = {k: sum(k in n for n in kernels) for k in (
+                "lars_norms_kernel", "lars_apply_kernel", "ls_xent_fwd_kernel",
+                "ls_xent_bwd_kernel")}
+            print(f"supervised torch_profile ({card}): 2 steps, {len(kernels)} kernel "
+                  f"events, the port's kernels named {named}")
+            if any(v != 2 for v in named.values()):
+                fail(f"the profiler trace names the port's kernels {named}, want 2 each")
+
+            # the checkpoint layer at full width
+            ck = tmp / "timing"
+            t0 = time.perf_counter()
+            payload = checkpoint._payload_of(clean)
+            snap_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            checkpoint._manifest_of(payload, clean.step, "probe", None)
+            crc_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            path = checkpoint.save(str(ck), clean)
+            save_s = time.perf_counter() - t0
+            writer = checkpoint.AsyncCheckpointWriter()
+            t0 = time.perf_counter()
+            writer.save(str(ck / "async"), clean)
+            async_s = time.perf_counter() - t0
+            if not writer.flush(300):
+                fail("the async writer did not commit within 300 s")
+            writer.close()
+            t0 = time.perf_counter()
+            manifest = checkpoint.validate(path, like=clean)
+            validate_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = checkpoint.restore(path, clean)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            host_like = TrainState.create({k: torch.empty(v.shape)
+                                           for k, v in clean.params.items()})
+            t0 = time.perf_counter()
+            host = checkpoint.restore(path, host_like)
+            host_restore_s = time.perf_counter() - t0
+            nbytes = sum(leaf["nbytes"] for leaf in manifest["leaves"].values())
+            host_same = all(torch.equal(host.params[k], clean.params[k].cpu()) and torch.equal(
+                host.opt_state["momentum"][k], clean.opt_state["momentum"][k].cpu())
+                for k in clean.params)
+            print(f"supervised checkpoint ({card}): {nbytes} B in {len(manifest['leaves'])} "
+                  f"leaves ({os.path.getsize(path)} B npz); snapshot to host "
+                  f"{1e3 * snap_s:.2f} ms, CRC32 {1e3 * crc_s:.2f} ms, sync save "
+                  f"{1e3 * save_s:.2f} ms, async writer's save (what a step pays) "
+                  f"{1e3 * async_s:.2f} ms, validate {1e3 * validate_s:.2f} ms, restore "
+                  f"on the card {1e3 * restore_s:.2f} ms, on the host "
+                  f"{1e3 * host_restore_s:.2f} ms; host restore equals the card's state: "
+                  f"{host_same}; restore on the card equals: {same(back, clean)}")
+            if not (host_same and same(back, clean) and host.step == clean.step == 12):
+                fail("a checkpoint written on the card does not restore as it was")
+            if nbytes != 2 * 102_228_128 + 12:
+                fail(f"checkpoint payload {nbytes} B, want 2 x 102,228,128 + 12")
+            out.update(counts=counts, steps=steps_run, recoveries=rec,
+                       span_ms=span_ms, checkpoint_bytes=nbytes,
+                       snapshot_ms=1e3 * snap_s, crc_ms=1e3 * crc_s, save_ms=1e3 * save_s,
+                       async_save_ms=1e3 * async_s, validate_ms=1e3 * validate_s,
+                       restore_ms=1e3 * restore_s, host_restore_ms=1e3 * host_restore_s)
+            del payload, back, host, host_like
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -372,12 +596,11 @@ def run(torch, store_dir: str) -> int:
     from repro_torch.core.batch_control import build_plan
     from repro_torch.core.schedules import BatchSchedule, BatchStage
     from repro_torch.core.topology import TorusGrid
-    from repro_torch.data import augment
-    from repro_torch.data.synthetic import SyntheticImageNet, generator
+    from repro_torch.data.synthetic import SyntheticImageNet
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.lars_update import lars_update_cuda
     from repro_torch.kernels.ls_xent import ls_xent_bwd_cuda, ls_xent_fwd_cuda
-    from repro_torch.launch import profile_step, profile_xent
+    from repro_torch.launch import profile_step, profile_trainer, profile_xent
     from repro_torch.launch.timing import FP32_FLOPS_PER_S, bound, eager_ms, graph_ms
     from repro_torch.models import resnet
     from repro_torch.train.state import TrainState
@@ -409,8 +632,7 @@ def run(torch, store_dir: str) -> int:
         return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
 
     # -- the main path's shapes ---------------------------------------------
-    cfg = resnet.ResNetConfig.resnet50(num_classes=1000, image_size=224)
-    model = resnet.init(cfg, seed=0)
+    model, data_fn, loss_fn, plan = profile_trainer.resnet50_path(dev)
     n_params = resnet.num_params(model)
     lcfg = lars.LARSConfig()
     named = [(n, tuple(p.shape)) for n, p in model.named_parameters()]
@@ -514,18 +736,6 @@ def run(torch, store_dir: str) -> int:
     grid = nccl_one_rank(torch, dev, store_dir)
 
     # -- the main path: full-width ResNet-50 over two batch stages ------------
-    data = SyntheticImageNet(num_classes=1000, image_size=224, seed=0, device=dev)
-
-    def data_fn(i, gb):
-        images, labels = data.batch(i, gb)
-        return augment.augment(generator(dev, 1, i), images, (224, 224)), labels
-
-    def loss_fn(params, batch, grid):
-        images, labels = batch
-        logits = resnet.apply(model, images, params=params, grid=grid)
-        return (losses.label_smoothing_xent(logits, labels, SMOOTHING),
-                torch.zeros((), device=dev))
-
     sync = profile_step.SYNC
     layout = grad_sync.bucket_layout(dict(model.named_parameters()), sync)
     sizes = {g: [b["nbytes"] for b in layout if b["group"] == g] for g in ("comm", "fp32")}
@@ -536,8 +746,6 @@ def run(torch, store_dir: str) -> int:
     if (len(layout), sum(sizes["comm"]), sum(sizes["fp32"])) != (11, 51_005_824, 216_480):
         fail("the ResNet-50 bucket layout is not 11 exchanges of 51,005,824 + 216,480 B")
 
-    sched = BatchSchedule((BatchStage(0, 1, 32), BatchStage(1, 2, 64)))
-    plan = build_plan(sched, dataset_size=256, n_workers=1, max_steps=12)
     print("plan: " + ", ".join(f"{s.num_steps} steps at {s.global_batch}"
                                for s in plan.stages))
     tcfg = TrainerConfig(schedule="B", log_every=1, grad_sync=sync)
@@ -549,6 +757,7 @@ def run(torch, store_dir: str) -> int:
     state, history = trainer.run(state)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    history = [h for h in history if h["kind"] == "metric"]
     steps = len(history)
     for r in history:
         print(f"  step {r['step']:3d} gb {r['global_batch']:3d} loss {r['loss']:.5f} "
@@ -567,12 +776,10 @@ def run(torch, store_dir: str) -> int:
             "flash_attn": 0, "flash_attn_f32": 0}
     if counts != want:
         fail(f"launch counts {counts}, want {want}")
-    for s in plan.stages:
-        walls = [r["wall_s"] for r in history
-                 if s.first_step < r["step"] <= s.first_step + s.num_steps]
-        print(f"stage gb {s.global_batch}: step ms {[round(1e3 * w, 2) for w in walls]}, "
-              f"steady median (first step excluded) "
-              f"{1e3 * statistics.median(walls[1:]):.2f} ms")
+    for st in profile_trainer.stage_medians(plan, history):
+        print(f"stage gb {st['global_batch']}: step ms "
+              f"{[round(w, 2) for w in st['step_ms']]}, steady median (first step "
+              f"excluded) {st['steady_median_ms']:.2f} ms ({card})")
 
     # the sync's share of a step at 64 images, and the step's launches
     gb = plan.stages[-1].global_batch
@@ -590,7 +797,14 @@ def run(torch, store_dir: str) -> int:
           f"{len(sync_t['wall_ms_runs'])}): {sync_t['wall_ms']:.3f} ms, "
           f"{sync_t['launches']} kernel launches; launches a step at {gb} images: "
           f"{step_launches} with the sync, {step_launches - sync_t['launches']} without it")
+    print(f"telemetry a step of Trainer.run (six spans, five instruments, no sink; host "
+          f"clock, mean of 2000): {telemetry_cost_us():.2f} us ({card})")
+    del holder, batch, grads
     ops.reset_launch_counts()
+
+    # -- the supervised trainer: chaos, resume, checkpoints, telemetry -------
+    sup = supervised(torch, grid, model, data_fn, loss_fn, plan, sync, card)
+    del state
 
     # -- the serve path: full-width Qwen3-1.7B --------------------------------
     serve = serve_qwen3(torch, dev)
@@ -665,10 +879,13 @@ def run(torch, store_dir: str) -> int:
                 xent_lm.setdefault(name, {})[str(dtype)[6:]] = {
                     k: t[k] for k in ("ms", "bound_ms", "plain_ms", "library_ms",
                                       "library_fwd_bwd_ms", "at") if k in t}
-    # each kernel's launches on its own main path: ResNet training, serving
+    # each kernel's launches on its own main paths: ResNet training (the main
+    # phase and the supervised phase, replayed steps included), serving
     # Qwen3-1.7B in bf16, or the fp32 smoke configs' prefills
-    launches = {**counts, "flash_attn": serve["counts"]["flash_attn"],
-                "flash_attn_f32": f32_launches}
+    by_path = {name: {"resnet50": counts[name], "supervised": sup["counts"][name]}
+               for name in ("lars_update", "ls_xent_fwd", "ls_xent_bwd")}
+    launches = {**{name: sum(v.values()) for name, v in by_path.items()},
+                "flash_attn": serve["counts"]["flash_attn"], "flash_attn_f32": f32_launches}
     # the flash checks' worst err/tol over their shapes, by kernel
     check_ratio = {"flash_attn": flash_err["bf16"][1], "flash_attn_f32": flash_err["fp32"][1]}
     kernels = []
@@ -679,7 +896,9 @@ def run(torch, store_dir: str) -> int:
                               else bound(t["bytes"], t["flops"], FP32_FLOPS_PER_S))
         kernels.append({
             "name": name, "route": route, "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err,
+            "launches": launches[name],
+            **({"launches_by_path": by_path[name]} if name in by_path else {}),
+            "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
@@ -691,6 +910,8 @@ def run(torch, store_dir: str) -> int:
             "at": t["at"],
         })
     print(json.dumps({"serve": {k: v for k, v in serve.items() if k != "counts"}}))
+    print(json.dumps({"supervised": {k: v for k, v in sup.items() if k != "counts"},
+                      "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

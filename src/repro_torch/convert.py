@@ -37,16 +37,23 @@ def _flatten(tree, prefix=""):
         yield from _flatten(sub, f"{prefix}.{k}" if prefix else str(k))
 
 
+def to_jax_layout(t: torch.Tensor) -> torch.Tensor:
+    """A leaf of the port in the JAX package's layout (a view): conv
+    kernels OIHW -> HWIO, every other leaf as it is."""
+    return t.permute(_OIHW_TO_HWIO) if t.dim() == 4 else t
+
+
+def from_jax_layout(a: np.ndarray) -> np.ndarray:
+    """A leaf of the JAX package in the port's layout (a view): conv
+    kernels HWIO -> OIHW, every other leaf as it is."""
+    return a.transpose(_HWIO_TO_OIHW) if a.ndim == 4 else a
+
+
 def params_from_jax(tree, device=None) -> dict[str, torch.Tensor]:
     """JAX param tree (numpy leaves) -> the port's ``{name: tensor}``."""
     dev = device_lib.resolve(device)
-    out = {}
-    for name, a in _flatten(tree):
-        a = np.asarray(a, dtype=np.float32)
-        if a.ndim == 4:
-            a = a.transpose(_HWIO_TO_OIHW)
-        out[name] = torch.tensor(a, device=dev)
-    return out
+    return {name: torch.tensor(from_jax_layout(np.asarray(a, dtype=np.float32)), device=dev)
+            for name, a in _flatten(tree)}
 
 
 def layers_from_jax(tree, cfg) -> list:
@@ -108,9 +115,7 @@ def params_to_jax(params: dict[str, torch.Tensor]):
     """The port's ``{name: tensor}`` -> JAX-layout tree of numpy arrays."""
     root: dict = {}
     for name, t in params.items():
-        a = t.detach().float().cpu().numpy()
-        if a.ndim == 4:
-            a = a.transpose(_OIHW_TO_HWIO)
+        a = to_jax_layout(t.detach().float().cpu()).numpy()
         *path, leaf = name.split(".")
         node = root
         for k in path:

@@ -245,6 +245,57 @@ def bucket_layout(grads: dict[str, torch.Tensor],
             for ex in sched.exchanges]
 
 
+def record_bucket_metrics(grads_like: dict[str, torch.Tensor], cfg: GradSyncConfig,
+                          registry) -> list[dict]:
+    """Publish the exchange schedule as gauges on a metrics registry
+    (``repro_torch.obs.metrics``), under the reference's names.
+
+    The schedule is a host-side function of the gradients' names, shapes
+    and dtypes (``bucket_layout``), known once the sync config is resolved.
+    Called with the params (the gradients' structure) and the resolved
+    config, this sets, for the fused path:
+
+    * ``grad_sync/num_buckets``            -- buckets in issue order
+    * ``grad_sync/total_nbytes``           -- bytes over all buckets
+    * ``grad_sync/bucketNN/nbytes``        -- per-bucket comm payload
+    * ``grad_sync/bucketNN/num_leaves``    -- leaves packed into bucket NN
+
+    and for the per-leaf ``fuse=False`` path:
+
+    * ``grad_sync/num_exchanges``          -- total exchanges (both paths)
+    * ``grad_sync/total_nbytes``           -- bytes over all exchanges
+    * ``grad_sync/per_leaf_exchanges``     -- large-leaf strategy exchanges
+    * ``grad_sync/grouped_buckets``        -- shared small-leaf buckets
+    * ``grad_sync/bucketNN/...``           -- the grouped buckets only
+
+    Every call first drops **all** ``grad_sync/`` metrics from the registry
+    (``MetricsRegistry.remove_prefix``): an elastic re-resolve can change
+    the bucket count or switch sync paths, and gauges from the previous
+    schedule must not linger and get exported as current. Returns the
+    layout (issue order); [] only when ``registry`` is None.
+    """
+    if registry is None:
+        return []
+    remove_prefix = getattr(registry, "remove_prefix", None)
+    if remove_prefix is not None:
+        remove_prefix("grad_sync/")
+    layout = bucket_layout(grads_like, cfg)
+    registry.gauge("grad_sync/num_exchanges").set(len(layout))
+    registry.gauge("grad_sync/total_nbytes").set(sum(b["nbytes"] for b in layout))
+    if cfg.fuse:
+        registry.gauge("grad_sync/num_buckets").set(len(layout))
+        buckets = layout
+    else:
+        buckets = [b for b in layout if b["mode"] == "grouped"]
+        registry.gauge("grad_sync/per_leaf_exchanges").set(
+            sum(1 for b in layout if b["mode"] == "per_leaf"))
+        registry.gauge("grad_sync/grouped_buckets").set(len(buckets))
+    for i, b in enumerate(buckets):
+        registry.gauge(f"grad_sync/bucket{i:02d}/nbytes").set(b["nbytes"])
+        registry.gauge(f"grad_sync/bucket{i:02d}/num_leaves").set(b["num_leaves"])
+    return layout
+
+
 @functools.lru_cache(maxsize=16)
 def _scale_in(dtype: torch.dtype, world: int) -> float:
     """1 / world rounded to ``dtype`` (the reference multiplies by
@@ -306,11 +357,6 @@ FALLBACK_CHAINS: dict[str, tuple[str, ...]] = {
 }
 
 
-#: The events' ``context`` tag, as the reference's at start-up (the port
-#: resolves the sync only there).
-_CONTEXT = "startup"
-
-
 def fallback_chain(strategy: str) -> tuple[str, ...]:
     return FALLBACK_CHAINS.get(strategy, (strategy, "psum"))
 
@@ -352,7 +398,7 @@ def _strategy_viable(strategy: str, lowering: str, grid: TorusGrid,
 
 
 def _resolve_bucket_bytes(cfg: GradSyncConfig, grid: TorusGrid, params_like,
-                          hw) -> tuple[GradSyncConfig, list[dict]]:
+                          hw, context: str) -> tuple[GradSyncConfig, list[dict]]:
     """Replace ``bucket_bytes="auto"`` with an autotuned value (after the
     fallback chain, so the tuned size matches the strategy that runs)."""
     if cfg.bucket_bytes != AUTO:
@@ -368,7 +414,7 @@ def _resolve_bucket_bytes(cfg: GradSyncConfig, grid: TorusGrid, params_like,
         layout = bucket_layout(params_like, dataclasses.replace(cfg, bucket_bytes=0))
         total_bytes = sum(b["nbytes"] for b in layout)
     rec = autotune.recommend_bucket_bytes(cfg.strategy, x, y, hw, total_bytes=total_bytes)
-    event = {"event": "bucket_autotune", "context": _CONTEXT,
+    event = {"event": "bucket_autotune", "context": context,
              "strategy": cfg.strategy, "mode": rec["mode"],
              "bucket_bytes": rec["bucket_bytes"],
              "analytic_knee_bytes": rec["analytic_knee_bytes"],
@@ -380,11 +426,14 @@ def _resolve_bucket_bytes(cfg: GradSyncConfig, grid: TorusGrid, params_like,
 
 
 def resolve_sync_config(cfg: GradSyncConfig, grid: TorusGrid, down_axes=(),
-                        params_like=None, hw=None) -> tuple[GradSyncConfig, list[dict]]:
+                        params_like=None, hw=None,
+                        context: str = "startup") -> tuple[GradSyncConfig, list[dict]]:
     """Walk ``cfg.strategy``'s fallback chain; return the first viable
     config plus the rejection/downgrade events.
 
-    psum ends every chain, so a downgrade is an event, not an error.
+    psum ends every chain, so a downgrade is an event, not an error. Every
+    event carries ``context``: ``"startup"``, or ``"elastic"`` for the
+    trainer's re-resolve after a permanent failure mid-run.
     ``bucket_bytes="auto"`` is resolved too, against ``params_like`` (the gradients' names and shapes;
     optional) and ``hw`` (an ``autotune.HardwareModel``, required for
     ``"auto"``).
@@ -395,17 +444,18 @@ def resolve_sync_config(cfg: GradSyncConfig, grid: TorusGrid, down_axes=(),
         if ok:
             if strategy != cfg.strategy:
                 events.append({"event": "grad_sync_downgrade", "from": cfg.strategy,
-                               "to": strategy, "context": _CONTEXT})
+                               "to": strategy, "context": context})
             resolved = dataclasses.replace(cfg, strategy=strategy)
-            resolved, tune_events = _resolve_bucket_bytes(resolved, grid, params_like, hw)
+            resolved, tune_events = _resolve_bucket_bytes(resolved, grid, params_like, hw,
+                                                          context)
             return resolved, events + tune_events
         events.append({"event": "grad_sync_strategy_rejected", "strategy": strategy,
-                       "reason": reason, "context": _CONTEXT})
+                       "reason": reason, "context": context})
     # reached when the ring lowering loses an axis: the rule rejects every
     # strategy on it, and psum runs the library's all-reduce whatever the
     # lowering
     events.append({"event": "grad_sync_downgrade", "from": cfg.strategy, "to": "psum",
-                   "context": _CONTEXT})
+                   "context": context})
     resolved = dataclasses.replace(cfg, strategy="psum")
-    resolved, tune_events = _resolve_bucket_bytes(resolved, grid, params_like, hw)
+    resolved, tune_events = _resolve_bucket_bytes(resolved, grid, params_like, hw, context)
     return resolved, events + tune_events

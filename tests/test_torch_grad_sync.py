@@ -143,6 +143,11 @@ RESOLVE_CASES = {
     "auto_knee": (dict(bucket_bytes="auto"), dict(hw=POD)),
     "auto_dx_down": (dict(bucket_bytes="auto"), dict(hw=POD, params_like=True,
                                                     down_axes=("dx",))),
+    # the trainer's re-resolve after a permanent failure mid-run
+    "torus2d_dy_down_elastic": (dict(), dict(down_axes=("dy",), context="elastic")),
+    "auto_dx_down_elastic": (dict(bucket_bytes="auto"),
+                             dict(hw=POD, params_like=True, down_axes=("dx",),
+                                  context="elastic")),
 }
 
 
