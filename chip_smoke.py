@@ -10,9 +10,10 @@
    LARS step over all 161 ResNet-50 leaves (LARS and skip, nesterov off
    and on), ``ls_xent`` forward and backward in fp32 and bf16 at the
    ResNet-50 head's shapes, at Qwen3-1.7B's (4096, 151936) logits and at
-   rows that start off a 16-byte boundary, and flash attention at nine
-   shapes, bf16 through the bf16 tensor-core kernel and fp32 through the
-   3xTF32 one (the wrapper picks by dtype), each under
+   rows that start off a 16-byte boundary, and flash attention at ten
+   shapes (the Qwen3-1.7B and granite-moe-3b-a800m prefills among them),
+   bf16 through the bf16 tensor-core kernel and fp32 through the 3xTF32 one
+   (the wrapper picks by dtype), each under
    ``kernels/ref.py::flash_attention_tol``;
 4. times each kernel beside its bound (the larger of bytes over the HBM
    rate and operations over the peak for the inputs' type; fp32 flash:
@@ -50,18 +51,23 @@
    checkpoint layer (snapshot to host, CRC32, sync save, the async writer's
    save, validate, restore on the card and on the host), failing unless a
    checkpoint written on the card restores on the host as it was;
-7. serves full-width Qwen3-1.7B (random weights from seed 0) through
-   ``RequestBatcher`` and ``generate`` at the serve shape of
+7. serves three archs at full width (random weights from seed 0, bf16
+   compute over fp32 masters, bf16 KV cache) through ``RequestBatcher``
+   and ``generate`` at the serve shape of
    ``repro_torch.launch.profile_serve``: 8 prompts of 512-2048 tokens,
-   left-padded to 2048, 32 new tokens each, greedy; fails on a non-finite
+   left-padded to 2048, 32 new tokens each, greedy. Qwen3-1.7B (dense
+   attention), granite-moe-3b-a800m (the MoE MLP in every layer) and
+   mamba2-2.7b (the SSD mixer, no attention); each fails on a non-finite
    logit, on a prefill that does not launch the tensor-core flash kernel
-   once a layer (28) or on a decode step that launches it at all;
-8. runs a tiny ResNet two steps (fp32 comm), and the Qwen3 and Gemma2
-   smoke configs (fp32, so the fp32 flash kernel) through ``generate``, on
-   the card and on the CPU from the same weights and inputs, and fails if
-   they disagree; the tiny card run must also equal, bit for bit, the same
-   run with ``sync_tree`` taken out (at one rank the fp32 sync multiplies by
-   1.0 and exchanges nothing);
+   once an attention layer (28, 32, 0) or on a decode step that launches
+   it at all;
+8. runs a tiny ResNet two steps (fp32 comm), and the smoke configs of all
+   eight ported archs (fp32, so the fp32 flash kernel) through
+   ``generate``, on the card and on the CPU from the same weights and
+   inputs, and fails if they disagree or if the card's prefill does not
+   launch the flash kernel once an attention layer; the tiny card run must
+   also equal, bit for bit, the same run with ``sync_tree`` taken out (at
+   one rank the fp32 sync multiplies by 1.0 and exchanges nothing);
 9. destroys the process group, and prints one ``{"kernels": [...]}``
    line, the card line again, and as the last line ``{"ok": true,
    "device": {...}}``.
@@ -103,8 +109,10 @@ TINY_TOL = 1e-3
 # P.V on the tensor cores
 FLASH_TOL = "fp32 1e-5 + 1e-5|exact|; bf16 1e-5 + 2^-7|ref| + 2^-8 P.|v|"
 # smoke transformers, fp32 compute, card vs host: matmuls and the attention
-# sum in different orders; two layers keep that near fp32 noise
+# sum in different orders; two or three layers keep that near fp32 noise
 SMOKE_LOGIT_TOL = 1e-4           # abs and relative, on prefill logits
+# the full-width serve phases: dense attention, the MoE MLP, the SSD mixer
+SERVE_ARCHS = ("qwen3-1.7b", "granite-moe-3b-a800m", "mamba2-2.7b")
 
 
 def gpu_line() -> str:
@@ -129,6 +137,7 @@ def check_flash(torch, dev, gen) -> dict:
 
     cases = [  # (B, S, Skv, H, Hkv, D, dtype, causal, window, softcap)
         (8, 2048, 2048, 16, 8, 128, torch.bfloat16, True, None, None),  # Qwen3 prefill
+        (8, 2048, 2048, 24, 8, 64, torch.bfloat16, True, None, None),   # granite prefill
         (2, 1024, 1024, 8, 4, 64, torch.bfloat16, True, None, None),
         (2, 1024, 1024, 8, 4, 256, torch.bfloat16, True, None, None),
         (2, 1024, 1024, 16, 8, 128, torch.bfloat16, True, 256, 50.0),
@@ -198,9 +207,13 @@ def time_flash(torch, gen) -> dict:
     return out
 
 
-def serve_qwen3(torch, dev) -> dict:
-    """The serve path at full width: RequestBatcher + generate, then the
-    same work split into prefill and decode steps to time each."""
+def attention_layers(cfg) -> int:
+    return sum(kind in ("attn", "local") for kind in cfg.kinds())
+
+
+def serve(torch, dev, arch: str) -> dict:
+    """The serve path of ``arch`` at full width: RequestBatcher + generate,
+    then the same work split into prefill and decode steps to time each."""
     import numpy as np
 
     from repro_torch.configs import registry
@@ -209,13 +222,14 @@ def serve_qwen3(torch, dev) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.serve import decode
 
-    cfg = registry.get("qwen3-1.7b")
+    cfg = registry.get(arch)
+    n_attn = attention_layers(cfg)
     t0 = time.perf_counter()
     model = T.init(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"qwen3-1.7b: {n_params} parameters ({cfg.num_params()} without norms), "
-          f"init {time.perf_counter() - t0:.1f} s")
+    print(f"{arch}: {n_params} parameters ({cfg.num_params()} without norms, "
+          f"{cfg.active_params()} active a token), init {time.perf_counter() - t0:.1f} s")
     rng = np.random.RandomState(0)
     prompts = [rng.randint(1, cfg.vocab, n).tolist() for n in PROMPT_LENS]
     batcher = decode.RequestBatcher(batch_size=len(prompts), seq_len=SEQ)
@@ -231,11 +245,11 @@ def serve_qwen3(torch, dev) -> dict:
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     results = batcher.unpack(out, n_real)
-    print(f"serve: generate {n_real} x {NEW} tokens in {1e3 * gen_s:.2f} ms "
+    print(f"serve {arch}: generate {n_real} x {NEW} tokens in {1e3 * gen_s:.2f} ms "
           f"({n_real * NEW / gen_s:.1f} generated tokens/s), launches {counts}, "
           f"peak device memory {peak / 2**30:.2f} GiB")
     want = {"lars_update": 0, "ls_xent_fwd": 0, "ls_xent_bwd": 0,
-            "flash_attn": cfg.n_layers, "flash_attn_f32": 0}
+            "flash_attn": n_attn, "flash_attn_f32": 0}
     if counts != want:
         fail(f"generate launched {counts}, want {want}")
     if len(results) != len(prompts) or any(len(r) != NEW for r in results):
@@ -267,29 +281,31 @@ def serve_qwen3(torch, dev) -> dict:
             finite &= torch.isfinite(logits).all()
             toks_out.append(tok)
         decode_counts = ops.launch_counts()
-    print(f"serve: prefill {len(prompts)} x {SEQ} tokens {prefill_ms:.2f} ms, "
+    print(f"serve {arch}: prefill {len(prompts)} x {SEQ} tokens {prefill_ms:.2f} ms, "
           f"flash launches {prefill_counts['flash_attn']}; decode step ms median "
           f"{statistics.median(step_ms):.3f} (first {step_ms[0]:.3f}, max "
           f"{max(step_ms):.3f}) over {len(step_ms)} steps, flash launches "
           f"{decode_counts['flash_attn']}")
-    if prefill_counts["flash_attn"] != cfg.n_layers:
-        fail(f"prefill launched flash_attn {prefill_counts['flash_attn']} times, "
-             f"want {cfg.n_layers}")
+    if prefill_counts["flash_attn"] != n_attn:
+        fail(f"{arch} prefill launched flash_attn {prefill_counts['flash_attn']} times, "
+             f"want {n_attn}")
     if any(decode_counts.values()):
         fail(f"decode launched {decode_counts}, want no kernel")
     if not bool(finite):
         fail("non-finite logits in prefill or decode")
     if not torch.equal(torch.cat(toks_out, dim=1), out):
-        fail("prefill + serve steps and generate picked different tokens")
+        fail(f"{arch}: prefill + serve steps and generate picked different tokens")
     return {"counts": counts, "generate_ms": 1e3 * gen_s, "prefill_ms": prefill_ms,
             "decode_ms": statistics.median(step_ms),
             "tokens_per_s": n_real * NEW / gen_s, "peak_gib": peak / 2**30}
 
 
 def smoke_card_vs_host(torch) -> int:
-    """Qwen3 and Gemma2 smoke configs, fp32 compute, the same weights and
-    prompts on the card and on the host: tokens equal, logits close.
-    Returns the fp32 flash kernel's launches in the card's prefills."""
+    """The smoke configs of every ported arch, fp32 compute, the same
+    weights and prompts on the card and on the host: tokens equal, logits
+    close, one fp32 flash launch an attention layer in the card's prefill
+    (none for mamba2). Returns the fp32 flash kernel's launches in the
+    card's prefills."""
     import dataclasses
 
     import numpy as np
@@ -300,7 +316,9 @@ def smoke_card_vs_host(torch) -> int:
     from repro_torch.serve import decode
 
     card_launches = 0
-    for arch in ("qwen3-1.7b", "gemma2-27b"):
+    if len(registry.PORTED) != 8:
+        fail(f"the registry ports {registry.PORTED}, want eight archs")
+    for arch in registry.PORTED:
         cfg = dataclasses.replace(registry.get_smoke(arch), compute_dtype=torch.float32)
         host = T.init(cfg, seed=1, device="cpu")
         g = torch.Generator().manual_seed(2)
@@ -330,7 +348,7 @@ def smoke_card_vs_host(torch) -> int:
               f"launches card {got['cuda'][2]} host {got['cpu'][2]}")
         if not ok or got["cuda"][1] != got["cpu"][1]:
             fail(f"{arch} smoke: the card disagrees with the host")
-        if got["cuda"][2] != cfg.n_layers or got["cpu"][2] != 0:
+        if got["cuda"][2] != attention_layers(cfg) or got["cpu"][2] != 0:
             fail(f"{arch} smoke: flash launches card {got['cuda'][2]}, host {got['cpu'][2]}")
         card_launches += got["cuda"][2]
     return card_launches
@@ -806,8 +824,8 @@ def run(torch, store_dir: str) -> int:
     sup = supervised(torch, grid, model, data_fn, loss_fn, plan, sync, card)
     del state
 
-    # -- the serve path: full-width Qwen3-1.7B --------------------------------
-    serve = serve_qwen3(torch, dev)
+    # -- the serve paths: full-width Qwen3-1.7B, granite-moe, mamba2 ----------
+    served = {arch: serve(torch, dev, arch) for arch in SERVE_ARCHS}
 
     # -- small input: the card's path against the host's ----------------------
     tiny = resnet.ResNetConfig.tiny(compute_dtype=torch.float32)
@@ -880,12 +898,13 @@ def run(torch, store_dir: str) -> int:
                     k: t[k] for k in ("ms", "bound_ms", "plain_ms", "library_ms",
                                       "library_fwd_bwd_ms", "at") if k in t}
     # each kernel's launches on its own main paths: ResNet training (the main
-    # phase and the supervised phase, replayed steps included), serving
-    # Qwen3-1.7B in bf16, or the fp32 smoke configs' prefills
+    # phase and the supervised phase, replayed steps included), serving the
+    # three full-width archs in bf16, or the fp32 smoke configs' prefills
     by_path = {name: {"resnet50": counts[name], "supervised": sup["counts"][name]}
                for name in ("lars_update", "ls_xent_fwd", "ls_xent_bwd")}
+    by_path["flash_attn"] = {arch: r["counts"]["flash_attn"] for arch, r in served.items()}
     launches = {**{name: sum(v.values()) for name, v in by_path.items()},
-                "flash_attn": serve["counts"]["flash_attn"], "flash_attn_f32": f32_launches}
+                "flash_attn_f32": f32_launches}
     # the flash checks' worst err/tol over their shapes, by kernel
     check_ratio = {"flash_attn": flash_err["bf16"][1], "flash_attn_f32": flash_err["fp32"][1]}
     kernels = []
@@ -909,7 +928,8 @@ def run(torch, store_dir: str) -> int:
             "rate": t.get("rate", "fp32 67 TFLOP/s, HBM 3.35 TB/s"),
             "at": t["at"],
         })
-    print(json.dumps({"serve": {k: v for k, v in serve.items() if k != "counts"}}))
+    print(json.dumps({"serve": {arch: {k: v for k, v in r.items() if k != "counts"}
+                                for arch, r in served.items()}, "card": card}))
     print(json.dumps({"supervised": {k: v for k, v in sup.items() if k != "counts"},
                       "card": card}))
     print(json.dumps({"kernels": kernels}))

@@ -24,20 +24,22 @@ ARCH_IDS = (
 )
 
 _MODULES = {
+    "musicgen-medium": "musicgen_medium",
+    "gemma-7b": "gemma_7b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "llama3-405b": "llama3_405b",
     "qwen3-1.7b": "qwen3_1_7b",
+    "mamba2-2.7b": "mamba2_2_7b",
     "gemma2-27b": "gemma2_27b",
 }
 
 _LATER = {
-    "musicgen-medium": "the audio config (LayerNorm, plain FFN, untied head)",
     "recurrentgemma-9b": "the RG-LRU mixer (nn/rglru.py)",
     "llama-3.2-vision-90b": "cross-attention and the VLM config",
-    "gemma-7b": "the remaining dense configs",
-    "granite-moe-3b-a800m": "the MoE MLP (nn/moe.py)",
-    "kimi-k2-1t-a32b": "the MoE MLP (nn/moe.py)",
-    "llama3-405b": "the remaining dense configs",
-    "mamba2-2.7b": "the SSD mixer (nn/ssm.py)",
 }
+
+PORTED = tuple(a for a in ARCH_IDS if a in _MODULES)
 
 
 def _module(arch_id: str):

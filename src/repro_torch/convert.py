@@ -11,7 +11,10 @@ first ``n_prefix`` layers in ``prefix`` and the rest in ``blocks``: one
 layer tree per pattern position whose leaves are stacked over ``n_blocks``.
 ``transformer_from_jax`` unstacks them into the port's ``layers.<i>``, with
 layer ``i = n_prefix + b * len(pattern) + j`` from block ``b``, position
-``j``. Dense kernels stay (in, out): the port computes ``x @ W`` as JAX does.
+``j``. Every transformer leaf keeps its JAX shape: dense kernels stay
+(in, out), as the port computes ``x @ W`` as JAX does, the MoE expert
+stacks (E, d, f), and nothing of a transformer is taken for a conv kernel
+(an SSD state in a cache is 4-d too).
 """
 
 from __future__ import annotations
@@ -49,11 +52,16 @@ def from_jax_layout(a: np.ndarray) -> np.ndarray:
     return a.transpose(_HWIO_TO_OIHW) if a.ndim == 4 else a
 
 
-def params_from_jax(tree, device=None) -> dict[str, torch.Tensor]:
-    """JAX param tree (numpy leaves) -> the port's ``{name: tensor}``."""
+def _tensors(tree, device, layout) -> dict[str, torch.Tensor]:
     dev = device_lib.resolve(device)
-    return {name: torch.tensor(from_jax_layout(np.asarray(a, dtype=np.float32)), device=dev)
+    return {name: torch.tensor(layout(np.asarray(a, dtype=np.float32)), device=dev)
             for name, a in _flatten(tree)}
+
+
+def params_from_jax(tree, device=None) -> dict[str, torch.Tensor]:
+    """JAX param tree of the ResNet (numpy leaves) -> the port's
+    ``{name: tensor}``, conv kernels HWIO -> OIHW."""
+    return _tensors(tree, device, from_jax_layout)
 
 
 def layers_from_jax(tree, cfg) -> list:
@@ -81,7 +89,7 @@ def transformer_from_jax(tree, cfg, device=None) -> dict[str, torch.Tensor]:
     cfg.check_ported()
     flat = {k: v for k, v in tree.items() if k not in ("prefix", "blocks")}
     flat["layers"] = layers_from_jax(tree, cfg)
-    return params_from_jax(flat, device)
+    return _tensors(flat, device, lambda a: a)
 
 
 def _jax_key(component: str):

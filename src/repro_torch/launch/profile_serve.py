@@ -1,11 +1,15 @@
 """Where the serve path of the PyTorch port spends its time on one GPU.
 
-    PYTHONPATH=src python3 -m repro_torch.launch.profile_serve [--out serve_profile.json]
+    PYTHONPATH=src python3 -m repro_torch.launch.profile_serve \
+        [--arch qwen3-1.7b] [--out serve_profile.json]
 
-Serves full-width Qwen3-1.7B (random weights, seed 0) on the serve shape
-defined here and driven by ``chip_smoke.py``'s serve phase: 8 prompts of
-``PROMPT_LENS`` tokens left-padded to 2048, then one-token decode steps over
-the 2048 + 32-slot cache. For the prefill and for a decode step it reports:
+Serves an arch of the registry at full width (random weights, seed 0;
+qwen3-1.7b unless ``--arch`` names another: granite-moe-3b-a800m and
+mamba2-2.7b fit one H100, llama3-405b and kimi-k2-1t-a32b do not) on the
+serve shape defined here and driven by ``chip_smoke.py``'s serve phases: 8
+prompts of ``PROMPT_LENS`` tokens left-padded to 2048, then one-token decode
+steps over the 2048 + 32-slot cache (an SSD layer's is its state). For the
+prefill and for a decode step it reports:
 
 - wall time (host clock around work that ends in a synchronise), median of
   ``STEPS`` runs after ``WARMUP``;
@@ -77,13 +81,14 @@ def _measure(fn, n: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-1.7b", choices=registry.ARCH_IDS)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_serve: no CUDA device", file=sys.stderr)
         return 1
     card = gpu_line()
-    cfg = registry.get("qwen3-1.7b")
+    cfg = registry.get(args.arch)
     model = T.init(cfg, seed=0)
     rng = np.random.RandomState(0)
     prompts = [rng.randint(1, cfg.vocab, n).tolist() for n in PROMPT_LENS]

@@ -52,6 +52,7 @@ CLASSES = (
     ("port: flash_attn", ("flash_tc_kernel", "flash_fwd_kernel")),
     ("convolution / matmul", ("conv", "gemm", "xmma", "cutlass", "wgrad", "dgrad",
                               "implicit", "sm90_", "cudnn", "nhwc", "nchw", "nvjet")),
+    ("sort / scan", ("radix", "sort", "scan")),
     ("reduction", ("reduce", "norm")),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "where", "copy",
                      "fill", "cat", "index", "gather", "scatter", "pool",

@@ -1,13 +1,16 @@
 """Decoder stack of the transformer zoo, as ``repro/models/transformer.py``,
-for the layer kinds ``attn`` (global causal self-attention) and ``local``
-(sliding-window self-attention) with dense MLPs.
+for the layer kinds ``attn`` (global causal self-attention), ``local``
+(sliding-window self-attention) and ``ssd`` (the Mamba-2 block,
+``nn/ssm.py``), with dense or MoE (``nn/moe.py``) MLPs or none.
 
 A model is a cycled ``pattern`` of layer kinds over ``n_layers``. The JAX
 model scans stacked ``blocks`` after an unscanned ``prefix``; here the
 layers are one ``nn.ModuleList`` in ``kinds()`` order, the same order
 (``repro_torch.convert.transformer_from_jax`` unstacks a JAX tree).
 Parameter names are the JAX paths with "." for "/", under ``layers.<i>``:
-``layers.3.mixer.q.kernel``, ``embed.embedding``, ``final_norm.norm_scale``.
+``layers.3.mixer.q.kernel``, ``layers.1.mlp.experts.up``,
+``embed.embedding``, ``final_norm.norm_scale``. A layer's cache is
+``{"k", "v"}`` for attention and ``{"ssm", "conv"}`` for SSD.
 
 Three entry points take the parameters as a nested dict (``Transformer.tree``
 or ``compute_params``):
@@ -15,8 +18,8 @@ or ``compute_params``):
     prefill(params, tokens, cfg)                  -> (last_logits, cache)
     decode_step(params, token, cache, index, cfg) -> (logits, cache)
 
-The ``ssd``, ``rglru`` and ``cross`` kinds and MoE MLPs come in later
-slices and raise ``NotImplementedError`` here.
+The ``rglru`` and ``cross`` kinds come in later parts of slice G and raise
+``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -30,12 +33,13 @@ from repro_torch import device as device_lib
 from repro_torch.nn import attention as A
 from repro_torch.nn import init as winit
 from repro_torch.nn import layers as L
+from repro_torch.nn import moe as M
+from repro_torch.nn import ssm as S
 
+_KINDS = ("attn", "local", "ssd")
 _LATER = {
-    "ssd": "the SSD mixer (nn/ssm.py), a later part of slice G",
     "rglru": "the RG-LRU mixer (nn/rglru.py), a later part of slice G",
-    "cross": "cross-attention and the VLM/audio configs, a later part of slice G",
-    "moe": "the MoE MLP (nn/moe.py), a later part of slice G",
+    "cross": "cross-attention and the VLM config, a later part of slice G",
 }
 
 
@@ -102,8 +106,6 @@ class ArchConfig:
         return (self.n_layers - self.n_prefix) // len(self.pattern)
 
     def attn_cfg(self, kind: str) -> A.AttnConfig:
-        if kind not in ("attn", "local"):
-            raise NotImplementedError(f"layer kind {kind!r} comes with {_LATER[kind]}")
         return A.AttnConfig(
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
@@ -112,12 +114,21 @@ class ArchConfig:
             window=self.window if kind == "local" else None,
             query_scale=self.head_dim ** -0.5)
 
+    def ssd_cfg(self) -> S.SSDConfig:
+        # ``ssm_unroll`` picks lax.scan or a loop in the reference; the port loops
+        return S.SSDConfig(d_model=self.d_model, d_state=self.ssm_state,
+                           head_dim=self.ssm_head_dim, chunk=self.ssm_chunk)
+
+    def moe_cfg(self) -> M.MoEConfig:
+        return M.MoEConfig(d_model=self.d_model, d_ff=self.d_ff,
+                           n_experts=self.n_experts, top_k=self.top_k,
+                           capacity_factor=self.moe_capacity_factor, act=self.act)
+
     def check_ported(self) -> None:
-        """Raise for a layer kind or MLP this slice of the port lacks."""
-        for kind in set(self.pattern):
-            self.attn_cfg(kind)
-        if self.mlp == "moe":
-            raise NotImplementedError(f"mlp 'moe' comes with {_LATER['moe']}")
+        """Raise for a layer kind this slice of the port lacks."""
+        for kind in self.pattern:
+            if kind not in _KINDS:
+                raise NotImplementedError(f"layer kind {kind!r} comes with {_LATER[kind]}")
 
     def num_params(self) -> int:
         """Analytic parameter count (no allocation)."""
@@ -131,9 +142,9 @@ class ArchConfig:
             + 2 * d * self.n_kv_heads * self.head_dim + o
         per_kind["cross"] = d * self.n_heads * self.head_dim + 2 * (
             (self.cross_kv_dim or d) * self.n_kv_heads * self.head_dim) + o
-        d_inner = 2 * d                                   # SSDConfig.expand = 2
-        per_kind["ssd"] = d * (2 * d_inner + 2 * self.ssm_state
-                               + d_inner // self.ssm_head_dim) + d_inner * d
+        sc = self.ssd_cfg()
+        per_kind["ssd"] = d * (2 * sc.d_inner + 2 * sc.d_state + sc.n_heads) \
+            + sc.d_inner * d
         per_kind["rglru"] = 5 * d * d                     # in x2, gates x2, out
         n_mats = 3 if self.gated_mlp else 2
         mlp_dense = n_mats * d * f
@@ -148,6 +159,14 @@ class ArchConfig:
             else:
                 total += mlp_dense
         return total
+
+    def active_params(self) -> int:
+        """MoE: params touched per token (for MODEL_FLOPS = 6*N_active*D)."""
+        if self.mlp != "moe":
+            return self.num_params()
+        inactive = (self.n_experts - self.top_k) * 3 * self.d_model * self.d_ff * (
+            self.n_layers - self.first_dense)
+        return self.num_params() - inactive
 
 
 # ---------------------------------------------------------------------------
@@ -165,19 +184,27 @@ def _norm(cfg: ArchConfig, p, x):
     return L.layernorm(x, p["norm_scale"], p["norm_bias"])
 
 
-def _layer_init(gen: torch.Generator, cfg: ArchConfig, kind: str) -> nn.ModuleDict:
+def _layer_init(gen: torch.Generator, cfg: ArchConfig, kind: str,
+                layer_idx: int) -> nn.ModuleDict:
     dev = gen.device
-    p = nn.ModuleDict({"pre_norm": _norm_init(cfg, dev),
-                       "mixer": A.attn_init(gen, cfg.attn_cfg(kind))})
+    mixer = (S.ssd_init(gen, cfg.ssd_cfg()) if kind == "ssd"
+             else A.attn_init(gen, cfg.attn_cfg(kind)))
+    p = nn.ModuleDict({"pre_norm": _norm_init(cfg, dev), "mixer": mixer})
     if cfg.post_norm:
         p["post_mixer_norm"] = _norm_init(cfg, dev)
     if cfg.mlp != "none":
         p["mlp_norm"] = _norm_init(cfg, dev)
-        mlp = nn.ModuleDict({"up": L.dense_init(gen, cfg.d_model, cfg.d_ff),
-                             "down": L.dense_init(gen, cfg.d_ff, cfg.d_model)})
-        if cfg.gated_mlp:
-            mlp["gate"] = L.dense_init(gen, cfg.d_model, cfg.d_ff)
-        p["mlp"] = mlp
+        if cfg.mlp == "moe" and layer_idx >= cfg.first_dense:
+            p["mlp"] = M.moe_init(gen, cfg.moe_cfg())
+        else:
+            # the dense layers of an MoE model are d_ff * top_k wide, as the
+            # reference's (activated compute comparable to an MoE layer's)
+            f = cfg.d_ff if cfg.mlp != "moe" else cfg.d_ff * max(cfg.top_k, 1)
+            mlp = nn.ModuleDict({"up": L.dense_init(gen, cfg.d_model, f),
+                                 "down": L.dense_init(gen, f, cfg.d_model)})
+            if cfg.gated_mlp:
+                mlp["gate"] = L.dense_init(gen, cfg.d_model, f)
+            p["mlp"] = mlp
         if cfg.post_norm:
             p["post_mlp_norm"] = _norm_init(cfg, dev)
     return p
@@ -188,7 +215,9 @@ def _tree(module: nn.Module):
         return dict(module.items())
     if isinstance(module, nn.ModuleList):
         return [_tree(m) for m in module]
-    return {name: _tree(m) for name, m in module.named_children()}
+    tree = dict(module.named_parameters(recurse=False))     # the SSD's dt_bias, A_log, D
+    tree.update((name, _tree(m)) for name, m in module.named_children())
+    return tree
 
 
 class Transformer(nn.Module):
@@ -202,7 +231,8 @@ class Transformer(nn.Module):
         self.embed = nn.ParameterDict(
             {"embedding": winit.normal(gen, (cfg.vocab, cfg.d_model), std=0.02)})
         self.final_norm = _norm_init(cfg, dev)
-        self.layers = nn.ModuleList(_layer_init(gen, cfg, k) for k in cfg.kinds())
+        self.layers = nn.ModuleList(_layer_init(gen, cfg, k, i)
+                                    for i, k in enumerate(cfg.kinds()))
         if not cfg.tie_embeddings:
             self.unembed = nn.ParameterDict(
                 {"kernel": winit.normal(gen, (cfg.d_model, cfg.vocab), std=0.02)})
@@ -219,15 +249,25 @@ def init(cfg: ArchConfig, *, seed: int = 0, device=None) -> Transformer:
     return Transformer(cfg, gen)
 
 
+def _compute(key: str, value, dtype: torch.dtype):
+    if key == "router":                    # the reference routes in fp32
+        return value
+    if key in ("kernel", "embedding"):
+        return L.cast(value, dtype)
+    if key == "experts":                   # the stacked (E, d, f) matrices
+        return {k: L.cast(v, dtype) for k, v in value.items()}
+    return compute_params(value, dtype)
+
+
 def compute_params(params, dtype: torch.dtype) -> dict:
-    """The tree with every matrix (``kernel``, ``embedding``) cast to the
-    compute dtype once; norm scales stay fp32. The JAX model casts at each
-    use, which gives the same values."""
+    """The tree with every matrix (``kernel``, ``embedding``, the expert
+    stacks) cast to the compute dtype once; the MoE router's kernel, norm
+    scales and the SSD's ``dt_bias``, ``A_log`` and ``D`` stay fp32. The
+    JAX model casts at each use, which gives the same values."""
     if isinstance(params, nn.Module):
         params = params.tree()
     if isinstance(params, dict):
-        return {k: (L.cast(v, dtype) if k in ("kernel", "embedding")
-                    else compute_params(v, dtype)) for k, v in params.items()}
+        return {k: _compute(k, v, dtype) for k, v in params.items()}
     if isinstance(params, list):
         return [compute_params(v, dtype) for v in params]
     return params
@@ -238,23 +278,32 @@ def compute_params(params, dtype: torch.dtype) -> dict:
 # ---------------------------------------------------------------------------
 
 def _mlp_block(p, x, cfg: ArchConfig):
+    """(x + the MLP's output, the MoE aux loss or None for a dense MLP)."""
     if cfg.mlp == "none":
-        return x
-    h = L.mlp(p["mlp"], _norm(cfg, p["mlp_norm"], x), act=cfg.act)
+        return x, None
+    h, aux = _norm(cfg, p["mlp_norm"], x), None
+    if "router" in p["mlp"]:
+        h, aux = M.moe_apply(p["mlp"], h, cfg.moe_cfg())
+    else:
+        h = L.mlp(p["mlp"], h, act=cfg.act)
     if cfg.post_norm:
         h = _norm(cfg, p["post_mlp_norm"], h)
-    return x + h
+    return x + h, aux
 
 
 def _residual(p, x, h, cfg: ArchConfig):
-    """x + (post-normed) mixer output, then the MLP block."""
+    """x + (post-normed) mixer output, then the MLP block: (x, aux)."""
     if cfg.post_norm:
         h = _norm(cfg, p["post_mixer_norm"], h)
     return _mlp_block(p, x + h, cfg)
 
 
 def _apply_layer(p, x, cfg: ArchConfig, kind: str):
-    h = A.self_attention(p["mixer"], _norm(cfg, p["pre_norm"], x), cfg.attn_cfg(kind))
+    h = _norm(cfg, p["pre_norm"], x)
+    if kind == "ssd":
+        h = S.ssd_apply(p["mixer"], h, cfg.ssd_cfg())
+    else:
+        h = A.self_attention(p["mixer"], h, cfg.attn_cfg(kind))
     return _residual(p, x, h, cfg)
 
 
@@ -284,7 +333,7 @@ def _as_tree(params):
 
 def forward(params, tokens: torch.Tensor, cfg: ArchConfig):
     """tokens: (B, S) int -> (logits (B, S, V) fp32, aux). aux is the MoE
-    loss of the JAX model, 0 for the dense MLPs ported here.
+    layers' load-balance loss summed in fp32, 0 without MoE layers.
 
     On the card the attention is the flash kernel, which has no backward
     yet: under autograd with weights that need gradients it raises, so
@@ -292,9 +341,12 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig):
     a later slice; on the host the plain attention is differentiable."""
     params = _as_tree(params)
     x = _embed_in(params, cfg, tokens)
+    aux_total = torch.zeros((), device=x.device)
     for p, kind in zip(params["layers"], cfg.kinds()):
-        x = _apply_layer(p, x, cfg, kind)
-    return _logits_out(params, cfg, x), torch.zeros((), device=x.device)
+        x, aux = _apply_layer(p, x, cfg, kind)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return _logits_out(params, cfg, x), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -305,14 +357,20 @@ def _cache_len(cfg: ArchConfig, kind: str, cache_len: int) -> int:
     return cache_len if kind == "attn" else min(cfg.window, cache_len)
 
 
+def _layer_cache(cfg: ArchConfig, kind: str, batch: int, cache_len: int, dtype, dev):
+    if kind == "ssd":
+        return S.ssd_init_state(batch, cfg.ssd_cfg(), dtype, dev)
+    return A.init_kv_cache(batch, _cache_len(cfg, kind, cache_len),
+                           cfg.attn_cfg(kind), dtype, dev)
+
+
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, device=None) -> list[dict]:
-    """One {"k", "v"} per layer, in ``kinds()`` order; local layers hold
-    ``min(window, cache_len)`` slots."""
+    """One cache a layer, in ``kinds()`` order: {"k", "v"} for attention
+    (local layers hold ``min(window, cache_len)`` slots), {"ssm" fp32,
+    "conv" in ``dtype``} for SSD."""
     dev = device_lib.resolve(device)
-    return [A.init_kv_cache(batch, _cache_len(cfg, kind, cache_len),
-                            cfg.attn_cfg(kind), dtype, dev)
-            for kind in cfg.kinds()]
+    return [_layer_cache(cfg, kind, batch, cache_len, dtype, dev) for kind in cfg.kinds()]
 
 
 # ---------------------------------------------------------------------------
@@ -322,13 +380,18 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
 def decode_step(params, token: torch.Tensor, cache: list[dict], index: int,
                 cfg: ArchConfig):
     """token: (B, 1) int; index: absolute position of the token. Writes the
-    token's k/v into ``cache`` in place. Returns (logits (B, 1, V), cache)."""
+    token's k/v, or the SSD layer's new state, into ``cache`` in place.
+    Returns (logits (B, 1, V), cache). MoE layers drop their aux loss."""
     params = _as_tree(params)
     x = _embed_in(params, cfg, token)
     for p, c, kind in zip(params["layers"], cache, cfg.kinds()):
         h = _norm(cfg, p["pre_norm"], x)
-        h, _ = A.decode_self_attention(p["mixer"], h, c, index, cfg.attn_cfg(kind))
-        x = _residual(p, x, h, cfg)
+        if kind == "ssd":
+            h, state = S.ssd_decode_step(p["mixer"], h, c, cfg.ssd_cfg())
+            c.update(state)
+        else:
+            h, _ = A.decode_self_attention(p["mixer"], h, c, index, cfg.attn_cfg(kind))
+        x, _ = _residual(p, x, h, cfg)
     return _logits_out(params, cfg, x), cache
 
 
@@ -340,9 +403,11 @@ def prefill(params, tokens: torch.Tensor, cfg: ArchConfig, *,
             cache_len: int | None = None, cache_dtype=torch.bfloat16):
     """Process the prompt; return (last-position logits (B, 1, V), cache).
 
-    Each layer projects q, k and v once and uses them for both its cache and
-    the flash kernel (the JAX model projects k and v twice, to the same
-    values).
+    Each attention layer projects q, k and v once and uses them for both its
+    cache and the flash kernel (the JAX model projects k and v twice, to the
+    same values). An SSD layer's cache is its final state as the reference
+    returns it: ``ssm`` fp32, ``conv`` in the compute dtype. MoE layers drop
+    their aux loss.
     """
     params = _as_tree(params)
     cache_len = cache_len or tokens.shape[1]
@@ -350,10 +415,14 @@ def prefill(params, tokens: torch.Tensor, cfg: ArchConfig, *,
     positions = A._positions(x)
     cache = []
     for p, kind in zip(params["layers"], cfg.kinds()):
-        acfg = cfg.attn_cfg(kind)
         h = _norm(cfg, p["pre_norm"], x)
-        q, k, v = A._project_qkv(p["mixer"], h, acfg, positions)
-        cache.append(A.kv_cache_layout(k, v, _cache_len(cfg, kind, cache_len),
-                                       cache_dtype))
-        x = _residual(p, x, A.attend(p["mixer"], q, k, v, acfg), cfg)
+        if kind == "ssd":
+            h, c = S.ssd_apply(p["mixer"], h, cfg.ssd_cfg(), return_state=True)
+        else:
+            acfg = cfg.attn_cfg(kind)
+            q, k, v = A._project_qkv(p["mixer"], h, acfg, positions)
+            c = A.kv_cache_layout(k, v, _cache_len(cfg, kind, cache_len), cache_dtype)
+            h = A.attend(p["mixer"], q, k, v, acfg)
+        cache.append(c)
+        x, _ = _residual(p, x, h, cfg)
     return _logits_out(params, cfg, x[:, -1:]), cache

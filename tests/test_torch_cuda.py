@@ -467,3 +467,56 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         flash_attention_cuda(torch.randn(1, 8, 3, 64, device=cuda), q, q)
     with pytest.raises(ValueError):
         flash_attention_cuda(q.transpose(1, 2), q, q)
+
+
+def _moe_params(cfg, dev, seed):
+    from repro_torch.nn import moe as M
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {k: dict(v.items()) for k, v in M.moe_init(gen, cfg).items()}
+
+
+def test_moe_combine_repeats_bit_for_bit(cuda):
+    """granite's MoE layer at its widths (d 1536, 40 experts of 512, top 8)
+    on 4096 bf16 tokens: the combine gathers each token's k slots and adds
+    them by ascending expert, so two runs give the same bits (a bf16
+    ``index_add_`` would add in the order its atomics land)."""
+    from repro_torch.nn import moe as M
+    cfg = M.MoEConfig(d_model=1536, d_ff=512, n_experts=40, top_k=8)
+    p = _moe_params(cfg, cuda, 0)
+    x = torch.randn(2, 2048, 1536, generator=_gen(cuda, 1), device=cuda).bfloat16()
+    with torch.inference_mode():
+        a, aux_a = M.moe_apply(p, x, cfg)
+        b, aux_b = M.moe_apply(p, x, cfg)
+        _, topk_e, _ = M.route(p, x.reshape(-1, 1536), cfg)
+        ye = torch.randn(40, cfg.capacity(4096), 1536, generator=_gen(cuda, 2),
+                         device=cuda).bfloat16()
+        _, slot_of = M.dispatch(topk_e, cfg.capacity(4096), 40)
+        c1, c2 = M.combine(ye, slot_of, topk_e), M.combine(ye, slot_of, topk_e)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b) and torch.equal(c1, c2)
+    assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "kimi-k2-1t-a32b", "mamba2-2.7b"])
+def test_moe_and_ssd_smoke_configs_on_the_card_match_the_host(cuda, arch):
+    """fp32 (TF32 off), the same weights: forward logits and the MoE aux
+    within fp32 summation noise (1e-4 relative to the largest logit), and
+    prefill plus decode caches of the same shapes and dtypes."""
+    import dataclasses
+    cfg = dataclasses.replace(registry.get_smoke(arch), compute_dtype=torch.float32)
+    host = T.init(cfg, seed=4, device="cpu")
+    card = T.init(cfg, seed=4, device=cuda)
+    card.load_state_dict(host.state_dict())
+    tokens = torch.randint(1, cfg.vocab, (2, 24), generator=torch.Generator().manual_seed(5))
+    with torch.inference_mode():
+        want, want_aux = T.forward(host, tokens, cfg)
+        got, aux = T.forward(card, tokens.to(cuda), cfg)
+        _, hc = T.prefill(host, tokens, cfg, cache_len=28)
+        _, cc = T.prefill(card, tokens.to(cuda), cfg, cache_len=28)
+        _, cc = T.decode_step(card, tokens[:, :1].to(cuda), cc, 24, cfg)
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * scale)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=0.0)
+    for h, c in zip(hc, cc):
+        assert {k: (v.shape, v.dtype) for k, v in h.items()} == \
+            {k: (v.shape, v.dtype) for k, v in c.items()}

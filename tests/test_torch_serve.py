@@ -5,7 +5,10 @@ decode steps over the KV cache. In fp32 compute both packages pick the same
 greedy tokens; in bf16 an argmax tie could go either way, so tokens are
 compared in fp32 and logits within a tolerance in
 tests/test_torch_transformer.py. Prompts are longer than gemma2's window of
-16, so its local layer decodes from the rolled cache.
+16, so its local layer decodes from the rolled cache. The MoE archs decode
+at T = B tokens a step, so their capacity is small (2 for B = 2, k = 2,
+E = 4) and pairs drop as in the reference; mamba2 decodes from its SSD
+state.
 """
 
 import jax.numpy as jnp
@@ -101,3 +104,34 @@ def test_batched_generate_serves_left_padded_requests():
     want = jb.unpack(jdecode.generate(jp, jbuf, jcfg, max_new_tokens=4), n)
     got = tb.unpack(tdecode.generate(tp, tbuf, tcfg, max_new_tokens=4), n)
     assert got == [[int(x) for x in row] for row in want]
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mamba2-2.7b"])
+def test_batched_generate_left_padded_moe_and_ssd(arch):
+    """As above for the MoE and SSD archs: the left pad tokens compete for
+    expert capacity in the prefill, and run through the SSD scan, in both
+    packages alike."""
+    jp, jcfg, tp, tcfg = pair(arch, "float32")
+    rng = np.random.RandomState(10)
+    prompts = [list(rng.randint(1, 128, n)) for n in (30, 20, 5)]
+    jb = jdecode.RequestBatcher(batch_size=4, seq_len=32)
+    tb = tdecode.RequestBatcher(batch_size=4, seq_len=32)
+    jbuf, _, n = jb.pack(prompts)
+    tbuf, _, _ = tb.pack(prompts, device="cpu")
+    want = jb.unpack(jdecode.generate(jp, jbuf, jcfg, max_new_tokens=4), n)
+    got = tb.unpack(tdecode.generate(tp, tbuf, tcfg, max_new_tokens=4), n)
+    assert got == [[int(x) for x in row] for row in want]
+
+
+@pytest.mark.parametrize("kernel, cls", [
+    ("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<...>", "sort / scan"),
+    ("void at::native::bitonicSortKVInPlace<...>", "sort / scan"),
+    ("void at::native::tensor_kernel_scan_innermost_dim<float, ...>", "sort / scan"),
+    ("void flash_tc_kernel<64, true>(...)", "port: flash_attn"),
+    ("nvjet_tst_128x256_64x4_2x1_v_bz_coopA_TNN", "convolution / matmul"),
+])
+def test_profile_classes_split_the_moe_and_ssd_kernels(kernel, cls):
+    """``profile_serve --arch`` splits the MoE routing's sorts and the SSD
+    scan's cumulative sums into their own class."""
+    from repro_torch.launch.profile_step import classify
+    assert classify(kernel) == cls
