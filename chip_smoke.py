@@ -10,11 +10,13 @@
    LARS step over all 161 ResNet-50 leaves (LARS and skip, nesterov off
    and on), ``ls_xent`` forward and backward in fp32 and bf16 at the
    ResNet-50 head's shapes, at Qwen3-1.7B's (4096, 151936) logits and at
-   rows that start off a 16-byte boundary, and flash attention at ten
-   shapes (the Qwen3-1.7B and granite-moe-3b-a800m prefills among them),
-   bf16 through the bf16 tensor-core kernel and fp32 through the 3xTF32 one
-   (the wrapper picks by dtype), each under
-   ``kernels/ref.py::flash_attention_tol``;
+   rows that start off a 16-byte boundary, and flash attention at twelve
+   shapes (the Qwen3-1.7B and granite-moe-3b-a800m prefills among them, and
+   the shapes of recurrentgemma-9b's and llama-3.2-vision-90b's prefills:
+   D 256 with 16 query heads on one kv head under a band that skips, and
+   unmasked over 1601 keys, a multiple of no tile), bf16 through the bf16
+   tensor-core kernel and fp32 through the 3xTF32 one (the wrapper picks by
+   dtype), each under ``kernels/ref.py::flash_attention_tol``;
 4. times each kernel beside its bound (the larger of bytes over the HBM
    rate and operations over the peak for the inputs' type; fp32 flash:
    three TF32 products, with the fp32 FMA bound beside it), its plain
@@ -23,7 +25,8 @@
    ``ls_xent`` through ``repro_torch.launch.profile_xent`` at
    (32 | 64, 1000) fp32 and (4096, 151936) fp32 and bf16; flash through
    ``repro_torch.launch.profile_flash``, the fp32 kernel at the smoke
-   config's shape and at the Qwen3-1.7B prefill shape;
+   config's shape and at the Qwen3-1.7B prefill shape, the bf16 kernel also
+   at the other served archs' prefill shapes (``profile_flash.SERVE_SHAPES``);
 5. initialises an NCCL process group of one rank (a ``dist.FileStore`` in a
    temporary directory), builds the 1 x 1 torus grid on it, and checks that
    ``reduce_scatter_tensor``, ``all_reduce`` and ``all_gather_into_tensor``
@@ -51,21 +54,26 @@
    checkpoint layer (snapshot to host, CRC32, sync save, the async writer's
    save, validate, restore on the card and on the host), failing unless a
    checkpoint written on the card restores on the host as it was;
-7. serves three archs at full width (random weights from seed 0, bf16
+7. serves five archs at full width (random weights from seed 0, bf16
    compute over fp32 masters, bf16 KV cache) through ``RequestBatcher``
    and ``generate`` at the serve shape of
    ``repro_torch.launch.profile_serve``: 8 prompts of 512-2048 tokens,
    left-padded to 2048, 32 new tokens each, greedy. Qwen3-1.7B (dense
-   attention), granite-moe-3b-a800m (the MoE MLP in every layer) and
-   mamba2-2.7b (the SSD mixer, no attention); each fails on a non-finite
-   logit, on a prefill that does not launch the tensor-core flash kernel
-   once an attention layer (28, 32, 0) or on a decode step that launches
-   it at all;
+   attention), granite-moe-3b-a800m (the MoE MLP in every layer),
+   mamba2-2.7b (the SSD mixer, no attention), recurrentgemma-9b (26 RG-LRU
+   layers and 12 local ones of window 2048, whose cache wraps on the first
+   decode step) and llama-3.2-vision-90b at its served depth of 5 layers (4
+   self-attention, 1 cross over a seeded (8, 1601, 7680) vision input); each
+   fails on a non-finite logit, on a prefill that does not launch the
+   tensor-core flash kernel once an attention or cross layer (28, 32, 0, 12,
+   5) or on a decode step that launches it at all, and frees its model
+   before the next;
 8. runs a tiny ResNet two steps (fp32 comm), and the smoke configs of all
-   eight ported archs (fp32, so the fp32 flash kernel) through
-   ``generate``, on the card and on the CPU from the same weights and
-   inputs, and fails if they disagree or if the card's prefill does not
-   launch the flash kernel once an attention layer; the tiny card run must
+   ten archs (fp32, so the fp32 flash kernel) through ``generate``, on the
+   card and on the CPU from the same weights and inputs (the VLM's from one
+   fp32 vision input), and fails if they disagree or if the card's prefill
+   does not launch the flash kernel once an attention or cross layer; the
+   tiny card run must
    also equal, bit for bit, the same run with ``sync_tree`` taken out (at
    one rank the fp32 sync multiplies by 1.0 and exchanges nothing);
 9. destroys the process group, and prints one ``{"kernels": [...]}``
@@ -78,6 +86,7 @@ beside this file. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -111,8 +120,10 @@ FLASH_TOL = "fp32 1e-5 + 1e-5|exact|; bf16 1e-5 + 2^-7|ref| + 2^-8 P.|v|"
 # smoke transformers, fp32 compute, card vs host: matmuls and the attention
 # sum in different orders; two or three layers keep that near fp32 noise
 SMOKE_LOGIT_TOL = 1e-4           # abs and relative, on prefill logits
-# the full-width serve phases: dense attention, the MoE MLP, the SSD mixer
-SERVE_ARCHS = ("qwen3-1.7b", "granite-moe-3b-a800m", "mamba2-2.7b")
+# the full-width serve phases: dense attention, the MoE MLP, the SSD mixer,
+# the RG-LRU hybrid, the VLM's cross-attention
+SERVE_ARCHS = ("qwen3-1.7b", "granite-moe-3b-a800m", "mamba2-2.7b", "recurrentgemma-9b",
+               "llama-3.2-vision-90b")
 
 
 def gpu_line() -> str:
@@ -146,6 +157,10 @@ def check_flash(torch, dev, gen) -> dict:
         (2, 1024, 1024, 16, 8, 128, torch.float32, True, None, None),
         (2, 1000, 1000, 16, 8, 128, torch.float32, False, 300, 30.0),
         (4, 48, 48, 4, 2, 32, torch.float32, True, 16, 50.0),            # smoke configs
+        # recurrentgemma's local layers at twice the serve length, so that
+        # the band of window 2048 skips; the VLM's cross layer, unmasked
+        (2, 4096, 4096, 16, 1, 256, torch.bfloat16, True, 2048, None),
+        (8, 2048, 1601, 64, 8, 128, torch.bfloat16, False, None, None),
     ]
     wrapper = {torch.bfloat16: flash_attention_tc, torch.float32: flash_attention_f32}
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
@@ -187,65 +202,77 @@ def check_flash(torch, dev, gen) -> dict:
 
 def time_flash(torch, gen) -> dict:
     """Both flash kernels through ``repro_torch.launch.profile_flash``: the
-    bf16 kernel at the Qwen3-1.7B prefill shape, the fp32 kernel at the
-    Qwen3 smoke config's shape (its main path) and, under "prefill", at the
-    Qwen3-1.7B prefill shape in fp32; each beside its plain version, SDPA
-    and its bound (fp32: 3xTF32, with the fp32 FMA bound beside it)."""
+    bf16 kernel at the Qwen3-1.7B prefill shape and, under "serve", at the
+    other served archs' prefill shapes; the fp32 kernel at the Qwen3 smoke
+    config's shape (its main path) and, under "prefill", at the Qwen3-1.7B
+    prefill shape in fp32; each beside its plain version, SDPA and its
+    bound (fp32: 3xTF32, with the fp32 FMA bound beside it)."""
     from repro_torch.launch import profile_flash
 
     out, prefill = {}, None
-    for name, shape, dtype, what in profile_flash.SHAPES:
-        t = profile_flash.time_flash(name, shape, dtype, what, gen)
+    for name, shape, dtype, masks, what in profile_flash.SHAPES:
+        t = profile_flash.time_flash(name, shape, dtype, masks, what, gen)
         print(f"time {name} ({t['at']}): {t}")
         if dtype == torch.float32 and shape == profile_flash.QWEN:
             prefill = t
         else:
             out[name] = t
-    out["flash_attn_f32"]["prefill"] = {k: prefill[k] for k in (
-        "ms", "eager_ms", "bound_ms", "fma_bound_ms", "plain_ms", "library_ms",
-        "tflops_per_s", "worst_err_over_tol", "at")}
+    keys = ("ms", "eager_ms", "bound_ms", "plain_ms", "library_ms", "tflops_per_s",
+            "max_abs_err", "worst_err_over_tol", "at")
+    out["flash_attn_f32"]["prefill"] = {k: prefill[k] for k in keys + ("fma_bound_ms",)}
+    out["flash_attn"]["serve"] = []
+    for shape, masks, what in profile_flash.SERVE_SHAPES:
+        t = profile_flash.time_flash("flash_attn", shape, torch.bfloat16, masks, what, gen)
+        print(f"time flash_attn ({t['at']}): {t}")
+        out["flash_attn"]["serve"].append({k: t[k] for k in keys})
     return out
 
 
 def attention_layers(cfg) -> int:
-    return sum(kind in ("attn", "local") for kind in cfg.kinds())
+    """Layers whose prefill launches the flash kernel."""
+    return sum(kind in ("attn", "local", "cross") for kind in cfg.kinds())
 
 
 def serve(torch, dev, arch: str) -> dict:
-    """The serve path of ``arch`` at full width: RequestBatcher + generate,
-    then the same work split into prefill and decode steps to time each."""
+    """The serve path of ``arch`` at full width (its depth cut where
+    ``profile_serve.DEPTH_CUTS`` says): RequestBatcher + generate, then the
+    same work split into prefill and decode steps to time each."""
     import numpy as np
 
     from repro_torch.configs import registry
     from repro_torch.kernels import ops
-    from repro_torch.launch.profile_serve import NEW, PROMPT_LENS, SEQ
+    from repro_torch.launch.profile_serve import (DEPTH_CUTS, NEW, PROMPT_LENS, SEQ,
+                                                  serve_config, vision_input)
     from repro_torch.models import transformer as T
     from repro_torch.serve import decode
 
-    cfg = registry.get(arch)
+    cfg = serve_config(arch)
+    cut = (f" (depth cut to {cfg.n_layers} of {registry.get(arch).n_layers} layers: "
+           f"{'/'.join(cfg.kinds())})" if arch in DEPTH_CUTS else "")
     n_attn = attention_layers(cfg)
     t0 = time.perf_counter()
     model = T.init(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"{arch}: {n_params} parameters ({cfg.num_params()} without norms, "
+    print(f"{arch}{cut}: {n_params} parameters ({cfg.num_params()} without norms, "
           f"{cfg.active_params()} active a token), init {time.perf_counter() - t0:.1f} s")
     rng = np.random.RandomState(0)
     prompts = [rng.randint(1, cfg.vocab, n).tolist() for n in PROMPT_LENS]
     batcher = decode.RequestBatcher(batch_size=len(prompts), seq_len=SEQ)
     toks, lens, n_real = batcher.pack(prompts, device=dev)
+    vision = vision_input(cfg, len(prompts), dev)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = decode.generate(model, toks, cfg, max_new_tokens=NEW)
+    out = decode.generate(model, toks, cfg, max_new_tokens=NEW, vision=vision)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     results = batcher.unpack(out, n_real)
-    print(f"serve {arch}: generate {n_real} x {NEW} tokens in {1e3 * gen_s:.2f} ms "
+    print(f"serve {arch}{cut}: generate {n_real} x {NEW} tokens in {1e3 * gen_s:.2f} ms "
           f"({n_real * NEW / gen_s:.1f} generated tokens/s), launches {counts}, "
           f"peak device memory {peak / 2**30:.2f} GiB")
     want = {"lars_update": 0, "ls_xent_fwd": 0, "ls_xent_bwd": 0,
@@ -263,7 +290,7 @@ def serve(torch, dev, arch: str) -> dict:
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        logits, cache = T.prefill(params, toks, cfg, cache_len=SEQ + NEW)
+        logits, cache = T.prefill(params, toks, cfg, vision=vision, cache_len=SEQ + NEW)
         torch.cuda.synchronize()
         prefill_ms = 1e3 * (time.perf_counter() - t0)
         prefill_counts = ops.launch_counts()
@@ -281,11 +308,13 @@ def serve(torch, dev, arch: str) -> dict:
             finite &= torch.isfinite(logits).all()
             toks_out.append(tok)
         decode_counts = ops.launch_counts()
-    print(f"serve {arch}: prefill {len(prompts)} x {SEQ} tokens {prefill_ms:.2f} ms, "
+    phase_peak = torch.cuda.max_memory_allocated()
+    print(f"serve {arch}{cut}: prefill {len(prompts)} x {SEQ} tokens {prefill_ms:.2f} ms, "
           f"flash launches {prefill_counts['flash_attn']}; decode step ms median "
           f"{statistics.median(step_ms):.3f} (first {step_ms[0]:.3f}, max "
           f"{max(step_ms):.3f}) over {len(step_ms)} steps, flash launches "
-          f"{decode_counts['flash_attn']}")
+          f"{decode_counts['flash_attn']}; the phase's peak device memory "
+          f"{phase_peak / 2**30:.2f} GiB")
     if prefill_counts["flash_attn"] != n_attn:
         fail(f"{arch} prefill launched flash_attn {prefill_counts['flash_attn']} times, "
              f"want {n_attn}")
@@ -297,15 +326,16 @@ def serve(torch, dev, arch: str) -> dict:
         fail(f"{arch}: prefill + serve steps and generate picked different tokens")
     return {"counts": counts, "generate_ms": 1e3 * gen_s, "prefill_ms": prefill_ms,
             "decode_ms": statistics.median(step_ms),
-            "tokens_per_s": n_real * NEW / gen_s, "peak_gib": peak / 2**30}
+            "tokens_per_s": n_real * NEW / gen_s, "peak_gib": peak / 2**30,
+            "phase_peak_gib": phase_peak / 2**30, "layers": cfg.n_layers}
 
 
 def smoke_card_vs_host(torch) -> int:
-    """The smoke configs of every ported arch, fp32 compute, the same
-    weights and prompts on the card and on the host: tokens equal, logits
-    close, one fp32 flash launch an attention layer in the card's prefill
-    (none for mamba2). Returns the fp32 flash kernel's launches in the
-    card's prefills."""
+    """The smoke configs of all ten archs, fp32 compute, the same weights,
+    prompts and (for the VLM) vision input on the card and on the host:
+    tokens equal, logits close, one fp32 flash launch an attention or cross
+    layer in the card's prefill (none for mamba2). Returns the fp32 flash
+    kernel's launches in the card's prefills."""
     import dataclasses
 
     import numpy as np
@@ -316,9 +346,9 @@ def smoke_card_vs_host(torch) -> int:
     from repro_torch.serve import decode
 
     card_launches = 0
-    if len(registry.PORTED) != 8:
-        fail(f"the registry ports {registry.PORTED}, want eight archs")
-    for arch in registry.PORTED:
+    if len(registry.ARCH_IDS) != 10:
+        fail(f"the registry lists {registry.ARCH_IDS}, want ten archs")
+    for arch in registry.ARCH_IDS:
         cfg = dataclasses.replace(registry.get_smoke(arch), compute_dtype=torch.float32)
         host = T.init(cfg, seed=1, device="cpu")
         g = torch.Generator().manual_seed(2)
@@ -330,15 +360,18 @@ def smoke_card_vs_host(torch) -> int:
         card.load_state_dict(host.state_dict())
         rng = np.random.RandomState(3)
         prompts = [rng.randint(1, cfg.vocab, n).tolist() for n in (48, 40, 29, 17)]
+        vision = (torch.from_numpy(rng.randn(4, cfg.vision_tokens, cfg.cross_kv_dim)
+                                   .astype(np.float32)) if cfg.vision_tokens else None)
         batcher = decode.RequestBatcher(batch_size=4, seq_len=48)
         got = {}
         for dev, model in (("cpu", host), ("cuda", card)):
             toks, _, n = batcher.pack(prompts, device=dev)
+            v = None if vision is None else vision.to(dev)
             ops.reset_launch_counts()
             with torch.inference_mode():
-                logits, _ = T.prefill(model, toks, cfg, cache_len=56)
+                logits, _ = T.prefill(model, toks, cfg, vision=v, cache_len=56)
             launches = ops.launch_counts()["flash_attn_f32"]   # fp32 compute
-            out = decode.generate(model, toks, cfg, max_new_tokens=8)
+            out = decode.generate(model, toks, cfg, max_new_tokens=8, vision=v)
             got[dev] = (logits.cpu(), batcher.unpack(out.cpu(), n), launches)
         err = (got["cuda"][0] - got["cpu"][0]).abs()
         ok = bool((err <= SMOKE_LOGIT_TOL * (1 + got["cpu"][0].abs())).all())
@@ -824,8 +857,12 @@ def run(torch, store_dir: str) -> int:
     sup = supervised(torch, grid, model, data_fn, loss_fn, plan, sync, card)
     del state
 
-    # -- the serve paths: full-width Qwen3-1.7B, granite-moe, mamba2 ----------
-    served = {arch: serve(torch, dev, arch) for arch in SERVE_ARCHS}
+    # -- the serve paths: five archs at full width, one at a time -------------
+    served = {}
+    for arch in SERVE_ARCHS:
+        served[arch] = serve(torch, dev, arch)
+        gc.collect()                       # the phase's model goes before the next
+        torch.cuda.empty_cache()
 
     # -- small input: the card's path against the host's ----------------------
     tiny = resnet.ResNetConfig.tiny(compute_dtype=torch.float32)
@@ -899,7 +936,7 @@ def run(torch, store_dir: str) -> int:
                                       "library_fwd_bwd_ms", "at") if k in t}
     # each kernel's launches on its own main paths: ResNet training (the main
     # phase and the supervised phase, replayed steps included), serving the
-    # three full-width archs in bf16, or the fp32 smoke configs' prefills
+    # five full-width archs in bf16, or the fp32 smoke configs' prefills
     by_path = {name: {"resnet50": counts[name], "supervised": sup["counts"][name]}
                for name in ("lars_update", "ls_xent_fwd", "ls_xent_bwd")}
     by_path["flash_attn"] = {arch: r["counts"]["flash_attn"] for arch, r in served.items()}
@@ -922,7 +959,7 @@ def run(torch, store_dir: str) -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
             **{k: t[k] for k in ("fma_bound_ms", "tflops_per_s", "library_fwd_bwd_ms",
-                                 "prefill") if k in t},
+                                 "prefill", "serve") if k in t},
             **({"lm": xent_lm[name]} if name in xent_lm else {}),
             **({"worst_err_over_tol": check_ratio[name]} if name in check_ratio else {}),
             "rate": t.get("rate", "fp32 67 TFLOP/s, HBM 3.35 TB/s"),

@@ -1,8 +1,5 @@
-"""Architecture registry: ``get``/``get_smoke`` by arch id.
-
-Lists every arch of the JAX package's registry. The ones whose layer kinds
-the port does not run yet raise with the part of slice G that brings them.
-"""
+"""Architecture registry: ``get``/``get_smoke`` by arch id, for every arch
+of the JAX package's registry."""
 
 from __future__ import annotations
 
@@ -25,6 +22,8 @@ ARCH_IDS = (
 
 _MODULES = {
     "musicgen-medium": "musicgen_medium",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
     "gemma-7b": "gemma_7b",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
@@ -34,19 +33,8 @@ _MODULES = {
     "gemma2-27b": "gemma2_27b",
 }
 
-_LATER = {
-    "recurrentgemma-9b": "the RG-LRU mixer (nn/rglru.py)",
-    "llama-3.2-vision-90b": "cross-attention and the VLM config",
-}
-
-PORTED = tuple(a for a in ARCH_IDS if a in _MODULES)
-
 
 def _module(arch_id: str):
-    if arch_id in _LATER:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet: it comes with {_LATER[arch_id]}, "
-            f"a later part of slice G (ROADMAP.md)")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; options: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")

@@ -13,8 +13,11 @@ layer tree per pattern position whose leaves are stacked over ``n_blocks``.
 layer ``i = n_prefix + b * len(pattern) + j`` from block ``b``, position
 ``j``. Every transformer leaf keeps its JAX shape: dense kernels stay
 (in, out), as the port computes ``x @ W`` as JAX does, the MoE expert
-stacks (E, d, f), and nothing of a transformer is taken for a conv kernel
-(an SSD state in a cache is 4-d too).
+stacks (E, d, f), the SSD's and RG-LRU's (W, C) conv kernels and (w, w)
+gate matrices, and nothing of a transformer is taken for a conv kernel (an
+SSD state in a cache is 4-d too). ``layers_from_jax`` unstacks a JAX cache
+the same way: RG-LRU ``hidden``/``conv`` states and the cross layers'
+vision k/v included.
 """
 
 from __future__ import annotations
@@ -86,7 +89,6 @@ def _index(tree, b):
 
 def transformer_from_jax(tree, cfg, device=None) -> dict[str, torch.Tensor]:
     """JAX transformer param tree (numpy leaves) -> the port's state dict."""
-    cfg.check_ported()
     flat = {k: v for k, v in tree.items() if k not in ("prefix", "blocks")}
     flat["layers"] = layers_from_jax(tree, cfg)
     return _tensors(flat, device, lambda a: a)

@@ -1,7 +1,9 @@
 """Decoder stack of the transformer zoo, as ``repro/models/transformer.py``,
-for the layer kinds ``attn`` (global causal self-attention), ``local``
-(sliding-window self-attention) and ``ssd`` (the Mamba-2 block,
-``nn/ssm.py``), with dense or MoE (``nn/moe.py``) MLPs or none.
+for every layer kind of the reference: ``attn`` (global causal
+self-attention), ``local`` (sliding-window self-attention), ``cross``
+(cross-attention to vision embeddings, the VLM), ``ssd`` (the Mamba-2
+block, ``nn/ssm.py``) and ``rglru`` (the RG-LRU block, ``nn/rglru.py``),
+with dense or MoE (``nn/moe.py``) MLPs or none.
 
 A model is a cycled ``pattern`` of layer kinds over ``n_layers``. The JAX
 model scans stacked ``blocks`` after an unscanned ``prefix``; here the
@@ -10,16 +12,15 @@ layers are one ``nn.ModuleList`` in ``kinds()`` order, the same order
 Parameter names are the JAX paths with "." for "/", under ``layers.<i>``:
 ``layers.3.mixer.q.kernel``, ``layers.1.mlp.experts.up``,
 ``embed.embedding``, ``final_norm.norm_scale``. A layer's cache is
-``{"k", "v"}`` for attention and ``{"ssm", "conv"}`` for SSD.
+``{"k", "v"}`` for attention (a cross layer's holds the vision tokens'),
+``{"ssm", "conv"}`` for SSD and ``{"hidden", "conv"}`` for RG-LRU.
 
 Three entry points take the parameters as a nested dict (``Transformer.tree``
-or ``compute_params``):
-    forward(params, tokens, cfg)                  -> (logits, aux)   (train)
-    prefill(params, tokens, cfg)                  -> (last_logits, cache)
+or ``compute_params``); a model with cross layers takes ``vision`` (B,
+vision_tokens, cross_kv_dim), the stub vision tower's output:
+    forward(params, tokens, cfg, vision=)         -> (logits, aux)   (train)
+    prefill(params, tokens, cfg, vision=)         -> (last_logits, cache)
     decode_step(params, token, cache, index, cfg) -> (logits, cache)
-
-The ``rglru`` and ``cross`` kinds come in later parts of slice G and raise
-``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -34,13 +35,8 @@ from repro_torch.nn import attention as A
 from repro_torch.nn import init as winit
 from repro_torch.nn import layers as L
 from repro_torch.nn import moe as M
+from repro_torch.nn import rglru as R
 from repro_torch.nn import ssm as S
-
-_KINDS = ("attn", "local", "ssd")
-_LATER = {
-    "rglru": "the RG-LRU mixer (nn/rglru.py), a later part of slice G",
-    "cross": "cross-attention and the VLM config, a later part of slice G",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +108,7 @@ class ArchConfig:
             rope_theta=self.rope_theta, qk_norm=self.qk_norm,
             attn_softcap=self.attn_softcap,
             window=self.window if kind == "local" else None,
+            cross_kv_dim=self.cross_kv_dim if kind == "cross" else None,
             query_scale=self.head_dim ** -0.5)
 
     def ssd_cfg(self) -> S.SSDConfig:
@@ -119,16 +116,13 @@ class ArchConfig:
         return S.SSDConfig(d_model=self.d_model, d_state=self.ssm_state,
                            head_dim=self.ssm_head_dim, chunk=self.ssm_chunk)
 
+    def rglru_cfg(self) -> R.RGLRUConfig:
+        return R.RGLRUConfig(d_model=self.d_model)
+
     def moe_cfg(self) -> M.MoEConfig:
         return M.MoEConfig(d_model=self.d_model, d_ff=self.d_ff,
                            n_experts=self.n_experts, top_k=self.top_k,
                            capacity_factor=self.moe_capacity_factor, act=self.act)
-
-    def check_ported(self) -> None:
-        """Raise for a layer kind this slice of the port lacks."""
-        for kind in self.pattern:
-            if kind not in _KINDS:
-                raise NotImplementedError(f"layer kind {kind!r} comes with {_LATER[kind]}")
 
     def num_params(self) -> int:
         """Analytic parameter count (no allocation)."""
@@ -187,8 +181,12 @@ def _norm(cfg: ArchConfig, p, x):
 def _layer_init(gen: torch.Generator, cfg: ArchConfig, kind: str,
                 layer_idx: int) -> nn.ModuleDict:
     dev = gen.device
-    mixer = (S.ssd_init(gen, cfg.ssd_cfg()) if kind == "ssd"
-             else A.attn_init(gen, cfg.attn_cfg(kind)))
+    if kind == "ssd":
+        mixer = S.ssd_init(gen, cfg.ssd_cfg())
+    elif kind == "rglru":
+        mixer = R.rglru_init(gen, cfg.rglru_cfg())
+    else:
+        mixer = A.attn_init(gen, cfg.attn_cfg(kind))
     p = nn.ModuleDict({"pre_norm": _norm_init(cfg, dev), "mixer": mixer})
     if cfg.post_norm:
         p["post_mixer_norm"] = _norm_init(cfg, dev)
@@ -215,7 +213,7 @@ def _tree(module: nn.Module):
         return dict(module.items())
     if isinstance(module, nn.ModuleList):
         return [_tree(m) for m in module]
-    tree = dict(module.named_parameters(recurse=False))     # the SSD's dt_bias, A_log, D
+    tree = dict(module.named_parameters(recurse=False))     # the mixers' own vectors
     tree.update((name, _tree(m)) for name, m in module.named_children())
     return tree
 
@@ -225,7 +223,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator):
         super().__init__()
-        cfg.check_ported()
         self.cfg = cfg
         dev = gen.device
         self.embed = nn.ParameterDict(
@@ -262,8 +259,9 @@ def _compute(key: str, value, dtype: torch.dtype):
 def compute_params(params, dtype: torch.dtype) -> dict:
     """The tree with every matrix (``kernel``, ``embedding``, the expert
     stacks) cast to the compute dtype once; the MoE router's kernel, norm
-    scales and the SSD's ``dt_bias``, ``A_log`` and ``D`` stay fp32. The
-    JAX model casts at each use, which gives the same values."""
+    scales, the SSD's ``dt_bias``, ``A_log`` and ``D`` and the RG-LRU's
+    gate matrices, biases and ``lambda_param`` (used in fp32) stay fp32.
+    The JAX model casts at each use, which gives the same values."""
     if isinstance(params, nn.Module):
         params = params.tree()
     if isinstance(params, dict):
@@ -298,10 +296,14 @@ def _residual(p, x, h, cfg: ArchConfig):
     return _mlp_block(p, x + h, cfg)
 
 
-def _apply_layer(p, x, cfg: ArchConfig, kind: str):
+def _apply_layer(p, x, cfg: ArchConfig, kind: str, vision=None):
     h = _norm(cfg, p["pre_norm"], x)
     if kind == "ssd":
         h = S.ssd_apply(p["mixer"], h, cfg.ssd_cfg())
+    elif kind == "rglru":
+        h = R.rglru_apply(p["mixer"], h, cfg.rglru_cfg())
+    elif kind == "cross":
+        h = A.cross_attention(p["mixer"], h, vision, cfg.attn_cfg(kind))
     else:
         h = A.self_attention(p["mixer"], h, cfg.attn_cfg(kind))
     return _residual(p, x, h, cfg)
@@ -331,19 +333,27 @@ def _as_tree(params):
     return params.tree() if isinstance(params, nn.Module) else params
 
 
-def forward(params, tokens: torch.Tensor, cfg: ArchConfig):
+def _check_vision(cfg: ArchConfig, vision) -> None:
+    if vision is None and "cross" in cfg.pattern:
+        raise ValueError(f"{cfg.name} has cross layers: pass vision=(B, "
+                         f"{cfg.vision_tokens}, {cfg.cross_kv_dim})")
+
+
+def forward(params, tokens: torch.Tensor, cfg: ArchConfig, *, vision=None):
     """tokens: (B, S) int -> (logits (B, S, V) fp32, aux). aux is the MoE
     layers' load-balance loss summed in fp32, 0 without MoE layers.
+    ``vision`` (B, vision_tokens, cross_kv_dim) feeds the cross layers.
 
     On the card the attention is the flash kernel, which has no backward
     yet: under autograd with weights that need gradients it raises, so
     call it under ``torch.no_grad()``. Training the transformer waits for
     a later slice; on the host the plain attention is differentiable."""
     params = _as_tree(params)
+    _check_vision(cfg, vision)
     x = _embed_in(params, cfg, tokens)
     aux_total = torch.zeros((), device=x.device)
     for p, kind in zip(params["layers"], cfg.kinds()):
-        x, aux = _apply_layer(p, x, cfg, kind)
+        x, aux = _apply_layer(p, x, cfg, kind, vision)
         if aux is not None:
             aux_total = aux_total + aux
     return _logits_out(params, cfg, x), aux_total
@@ -354,12 +364,14 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 def _cache_len(cfg: ArchConfig, kind: str, cache_len: int) -> int:
-    return cache_len if kind == "attn" else min(cfg.window, cache_len)
+    return min(cfg.window, cache_len) if kind == "local" else cache_len
 
 
 def _layer_cache(cfg: ArchConfig, kind: str, batch: int, cache_len: int, dtype, dev):
     if kind == "ssd":
         return S.ssd_init_state(batch, cfg.ssd_cfg(), dtype, dev)
+    if kind == "rglru":
+        return R.rglru_init_state(batch, cfg.rglru_cfg(), dtype, dev)
     return A.init_kv_cache(batch, _cache_len(cfg, kind, cache_len),
                            cfg.attn_cfg(kind), dtype, dev)
 
@@ -367,8 +379,10 @@ def _layer_cache(cfg: ArchConfig, kind: str, batch: int, cache_len: int, dtype, 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, device=None) -> list[dict]:
     """One cache a layer, in ``kinds()`` order: {"k", "v"} for attention
-    (local layers hold ``min(window, cache_len)`` slots), {"ssm" fp32,
-    "conv" in ``dtype``} for SSD."""
+    (local layers hold ``min(window, cache_len)`` slots; a cross layer's
+    ``cache_len`` slots, as the reference's, until prefill puts the vision
+    tokens' k/v there), {"ssm" fp32, "conv" in ``dtype``} for SSD,
+    {"hidden" fp32, "conv" in ``dtype``} for RG-LRU."""
     dev = device_lib.resolve(device)
     return [_layer_cache(cfg, kind, batch, cache_len, dtype, dev) for kind in cfg.kinds()]
 
@@ -380,8 +394,9 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
 def decode_step(params, token: torch.Tensor, cache: list[dict], index: int,
                 cfg: ArchConfig):
     """token: (B, 1) int; index: absolute position of the token. Writes the
-    token's k/v, or the SSD layer's new state, into ``cache`` in place.
-    Returns (logits (B, 1, V), cache). MoE layers drop their aux loss."""
+    token's k/v, or the SSD or RG-LRU layer's new state, into ``cache`` in
+    place; a cross layer reads its vision cache. Returns (logits (B, 1, V),
+    cache). MoE layers drop their aux loss."""
     params = _as_tree(params)
     x = _embed_in(params, cfg, token)
     for p, c, kind in zip(params["layers"], cache, cfg.kinds()):
@@ -389,6 +404,11 @@ def decode_step(params, token: torch.Tensor, cache: list[dict], index: int,
         if kind == "ssd":
             h, state = S.ssd_decode_step(p["mixer"], h, c, cfg.ssd_cfg())
             c.update(state)
+        elif kind == "rglru":
+            h, state = R.rglru_decode_step(p["mixer"], h, c, cfg.rglru_cfg())
+            c.update(state)
+        elif kind == "cross":
+            h = A.decode_cross_attention(p["mixer"], h, c, cfg.attn_cfg(kind))
         else:
             h, _ = A.decode_self_attention(p["mixer"], h, c, index, cfg.attn_cfg(kind))
         x, _ = _residual(p, x, h, cfg)
@@ -399,17 +419,20 @@ def decode_step(params, token: torch.Tensor, cache: list[dict], index: int,
 # prefill
 # ---------------------------------------------------------------------------
 
-def prefill(params, tokens: torch.Tensor, cfg: ArchConfig, *,
+def prefill(params, tokens: torch.Tensor, cfg: ArchConfig, *, vision=None,
             cache_len: int | None = None, cache_dtype=torch.bfloat16):
     """Process the prompt; return (last-position logits (B, 1, V), cache).
 
     Each attention layer projects q, k and v once and uses them for both its
     cache and the flash kernel (the JAX model projects k and v twice, to the
-    same values). An SSD layer's cache is its final state as the reference
-    returns it: ``ssm`` fp32, ``conv`` in the compute dtype. MoE layers drop
-    their aux loss.
+    same values); a cross layer's cache is the vision tokens' k/v in
+    ``cache_dtype``, and its attention the flash kernel unmasked. An SSD or
+    RG-LRU layer's cache is its final state as the reference returns it:
+    ``ssm`` or ``hidden`` fp32, ``conv`` in the compute dtype. MoE layers
+    drop their aux loss.
     """
     params = _as_tree(params)
+    _check_vision(cfg, vision)
     cache_len = cache_len or tokens.shape[1]
     x = _embed_in(params, cfg, tokens)
     positions = A._positions(x)
@@ -418,6 +441,13 @@ def prefill(params, tokens: torch.Tensor, cfg: ArchConfig, *,
         h = _norm(cfg, p["pre_norm"], x)
         if kind == "ssd":
             h, c = S.ssd_apply(p["mixer"], h, cfg.ssd_cfg(), return_state=True)
+        elif kind == "rglru":
+            h, c = R.rglru_apply(p["mixer"], h, cfg.rglru_cfg(), return_state=True)
+        elif kind == "cross":
+            acfg = cfg.attn_cfg(kind)
+            q, k, v = A._project_qkv(p["mixer"], h, acfg, kv_src=vision)
+            c = {"k": k.to(cache_dtype), "v": v.to(cache_dtype)}
+            h = A.attend(p["mixer"], q, k, v, acfg, causal=False)
         else:
             acfg = cfg.attn_cfg(kind)
             q, k, v = A._project_qkv(p["mixer"], h, acfg, positions)

@@ -1,19 +1,20 @@
-"""Self-attention as ``repro/nn/attention.py``: GQA/MQA/MHA, RoPE, qk-norm,
-logit softcap, sliding window, and cached decode with a rolling buffer for
-local (sliding-window) layers.
+"""Attention as ``repro/nn/attention.py``: GQA/MQA/MHA, RoPE, qk-norm,
+logit softcap, sliding window, cross-attention (the VLM's text queries over
+vision keys), and cached decode with a rolling buffer for local
+(sliding-window) layers.
 
 Full-sequence self-attention (training forward and prefill) goes through
 ``kernels.ops.flash_attention``: the hand-written CUDA kernel on the card,
 its plain version on the host. That replaces both the JAX package's
 ``_sdpa`` branch and its query-chunked branch, which compute the same
-function. One-token decode uses the plain ``_sdpa``, as the JAX package's
-decode is an einsum outside any Pallas kernel.
+function; a cross layer runs it unmasked (``causal=False``) over the
+vision tokens. One-token decode uses the plain ``_sdpa``, as the JAX
+package's decode is an einsum outside any Pallas kernel.
 
 Parameters come as the model's tree: ``{"q", "k", "v", "o"}: {"kernel":
 (in, out)}`` plus ``{"q_norm", "k_norm"}: {"norm_scale"}`` with qk-norm.
 The caches are updated in place (the JAX package returns new arrays): a
 full-width cache is gigabytes, and a copy a token would move all of it.
-Cross-attention comes with the VLM configs in a later slice.
 """
 
 from __future__ import annotations
@@ -84,17 +85,22 @@ def attn_init(gen: torch.Generator, cfg: AttnConfig) -> nn.ModuleDict:
     return p
 
 
-def _project_qkv(p, x, cfg: AttnConfig, positions):
-    """Self-attention q, k, v of x (B, S, d) at ``positions`` (B, S):
-    projections, qk-norm, then RoPE (the JAX package's ``_project_qkv``
-    with kv_src = x and rope on)."""
+def _project_qkv(p, x, cfg: AttnConfig, positions=None, kv_src=None):
+    """q of x (B, S, d), k and v of ``kv_src`` (x when None): projections,
+    qk-norm, then RoPE at ``positions`` (B, S) for self-attention. A cross
+    layer passes ``kv_src`` (B, Skv, cross_kv_dim), cast to x's dtype, and
+    no positions: no RoPE on either side (the JAX package's
+    ``_project_qkv`` with ``use_rope=False``)."""
     B = x.shape[0]
+    kv = x if kv_src is None else kv_src.to(x.dtype)
     q = L.dense(x, p["q"]["kernel"]).reshape(B, -1, cfg.n_heads, cfg.head_dim)
-    k = L.dense(x, p["k"]["kernel"]).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
-    v = L.dense(x, p["v"]["kernel"]).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
+    k = L.dense(kv, p["k"]["kernel"]).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
+    v = L.dense(kv, p["v"]["kernel"]).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = L.rmsnorm(q, p["q_norm"]["norm_scale"])
         k = L.rmsnorm(k, p["k_norm"]["norm_scale"])
+    if kv_src is not None:
+        return q, k, v
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 
@@ -141,11 +147,12 @@ def causal_mask(sq: int, skv: int, q_offset: int = 0, window: int | None = None,
 
 # --------------------------------------------------------------- forward --
 
-def attend(p, q, k, v, cfg: AttnConfig) -> torch.Tensor:
-    """Causal (windowed) attention of projected q, k, v and the output
-    projection: the flash kernel on the card, its plain version on the host."""
+def attend(p, q, k, v, cfg: AttnConfig, causal: bool = True) -> torch.Tensor:
+    """Attention of projected q, k, v (causal and windowed as ``cfg`` says,
+    or unmasked) and the output projection: the flash kernel on the card,
+    its plain version on the host."""
     B, S = q.shape[:2]
-    out = ops.flash_attention(q, k, v, causal=True, window=cfg.window,
+    out = ops.flash_attention(q, k, v, causal=causal, window=cfg.window,
                               softcap=cfg.attn_softcap, scale=cfg.scale)
     return L.dense(out.reshape(B, S, -1), p["o"]["kernel"])
 
@@ -154,6 +161,13 @@ def self_attention(p, x, cfg: AttnConfig):
     """Full-sequence (training / prefill) self-attention of x (B, S, d)."""
     q, k, v = _project_qkv(p, x, cfg, _positions(x))
     return attend(p, q, k, v, cfg)
+
+
+def cross_attention(p, x, kv_src, cfg: AttnConfig):
+    """Cross-attention (VLM): queries from x (B, S, d), keys and values
+    from ``kv_src`` (B, Skv, cross_kv_dim); no mask, no RoPE."""
+    q, k, v = _project_qkv(p, x, cfg, kv_src=kv_src)
+    return attend(p, q, k, v, cfg, causal=False)
 
 
 # ---------------------------------------------------------------- decode --
@@ -189,6 +203,19 @@ def decode_self_attention(p, x, cache: dict, index: int, cfg: AttnConfig):
     mask = valid.expand(B, cache_len)[:, None, :]
     out = _sdpa(q, cache["k"], cache["v"], mask, cfg)
     return L.dense(out, p["o"]["kernel"]), cache
+
+
+def decode_cross_attention(p, x, cache: dict, cfg: AttnConfig) -> torch.Tensor:
+    """One-token cross-attention over the prefilled vision cache {"k", "v"}
+    (B, Skv, Hkv, D), which stays as it is (the reference's
+    ``models/transformer.py:_decode_cross``). x: (B, 1, d) -> (B, 1, d)."""
+    B = x.shape[0]
+    q = L.dense(x, p["q"]["kernel"]).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = L.rmsnorm(q, p["q_norm"]["norm_scale"])
+    mask = torch.ones((B, 1, cache["k"].shape[1]), dtype=torch.bool, device=x.device)
+    out = _sdpa(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), mask, cfg)
+    return L.dense(out, p["o"]["kernel"])
 
 
 def kv_cache_layout(k: torch.Tensor, v: torch.Tensor, cache_len: int,

@@ -178,6 +178,23 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 ACTS = {"gelu": _gelu_tanh, "silu": F.silu, "relu": F.relu, "gelu_tanh": _gelu_tanh}
 
 
+def causal_conv(x: torch.Tensor, kernel: torch.Tensor, state: torch.Tensor | None = None):
+    """Causal depthwise conv of width W over x (B, S, C) with ``kernel``
+    (W, C), after ``state`` (B, W-1, C), the previous inputs, when decoding
+    (zeros otherwise). The reference's W-tap sum in x's dtype (``F.conv1d``
+    would accumulate otherwise in bf16). Returns (y, new_state): the last
+    W-1 inputs, copied, since a view would keep the whole padded buffer
+    alive in a cache."""
+    w = cast(kernel, x.dtype)
+    W, S = w.shape[0], x.shape[1]
+    pad = x.new_zeros(x.shape[0], W - 1, x.shape[-1]) if state is None else state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                                 # (B, S+W-1, C)
+    y = xp[:, 0:S] * w[0]
+    for i in range(1, W):
+        y = y + xp[:, i:i + S] * w[i]
+    return y, xp[:, -(W - 1):].clone()
+
+
 def mlp(p: dict, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
     """(Gated) MLP over ``{"up", "down"[, "gate"]}: {"kernel": (in, out)}``."""
     h = dense(x, p["up"]["kernel"])

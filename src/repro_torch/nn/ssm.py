@@ -17,7 +17,7 @@ Numerics kept from the reference:
 - softplus as ``logaddexp(x, 0)``, which is ``jax.nn.softplus`` (PyTorch's
   ``F.softplus`` returns x itself above 20, a difference below 2e-9);
 - the depthwise conv as the reference's W-tap sum in the compute dtype
-  (``F.conv1d`` would accumulate otherwise in bf16);
+  (``nn/layers.py:causal_conv``);
 - the intra-chunk decay masked to -60 *before* ``exp``, where the upper
   triangle's positive exponents would overflow;
 - zero dt on the padding to a multiple of the chunk: decay exp(0) = 1 and
@@ -92,20 +92,10 @@ def _split_proj(p, u: torch.Tensor, cfg: SSDConfig):
 
 
 def _conv1d(p, xbc: torch.Tensor, state: torch.Tensor | None = None):
-    """Causal depthwise conv of width W over xbc (B, S, C), after ``state``
-    (B, W-1, C) when decoding. Returns (silu(y), new_state)."""
-    w = L.cast(p["conv"]["kernel"], xbc.dtype)                      # (W, C)
-    W, S = w.shape[0], xbc.shape[1]
-    if state is None:
-        pad = xbc.new_zeros(xbc.shape[0], W - 1, xbc.shape[-1])
-    else:
-        pad = state.to(xbc.dtype)
-    xp = torch.cat([pad, xbc], dim=1)                               # (B, S+W-1, C)
-    y = xp[:, 0:S] * w[0]
-    for i in range(1, W):
-        y = y + xp[:, i:i + S] * w[i]
-    # a copy: a view would keep all of xp alive in the cache
-    return F.silu(y), xp[:, -(W - 1):].clone()
+    """Causal depthwise conv of xbc (B, S, C) after ``state`` (B, W-1, C)
+    when decoding. Returns (silu(y), new_state)."""
+    y, new_state = L.causal_conv(xbc, p["conv"]["kernel"], state)
+    return F.silu(y), new_state
 
 
 def _ssd_chunked(x, dt, A, B_, C, cfg: SSDConfig, h0=None):

@@ -6,9 +6,10 @@ prefill-then-decode loop (greedy, or temperature sampling from a
 ``torch.Generator``). ``RequestBatcher`` left-pads prompts into one fixed
 (batch, seq) shape.
 
-Prefill self-attention runs the flash kernel on the card (28 launches a
-prefill for Qwen3-1.7B); decode attention is plain PyTorch, as the JAX
-package's decode is an einsum outside any kernel.
+Prefill attention runs the flash kernel on the card, one launch an
+attention or cross layer (28 a prefill for Qwen3-1.7B); decode attention
+is plain PyTorch, as the JAX package's decode is an einsum outside any
+kernel.
 """
 
 from __future__ import annotations
@@ -33,10 +34,13 @@ def make_serve_step(cfg: T.ArchConfig):
 
 @torch.inference_mode()
 def generate(params, prompts: torch.Tensor, cfg: T.ArchConfig, *,
-             max_new_tokens: int = 16, cache_len: int | None = None,
+             max_new_tokens: int = 16, vision: torch.Tensor | None = None,
+             cache_len: int | None = None,
              temperature: float = 0.0,
              generator: torch.Generator | None = None) -> torch.Tensor:
     """prompts: (B, S) int on the params' device -> (B, max_new_tokens) int32.
+    ``vision`` (B, vision_tokens, cross_kv_dim), on the same device, feeds
+    the cross layers' prefill; decode reads their cached k/v.
 
     The matrices are cast to ``cfg.compute_dtype`` once here, not at each
     use; the cache is bf16 (the JAX default). Greedy at temperature 0;
@@ -46,7 +50,7 @@ def generate(params, prompts: torch.Tensor, cfg: T.ArchConfig, *,
     B, S = prompts.shape
     cache_len = cache_len or (S + max_new_tokens)
     params = T.compute_params(params, cfg.compute_dtype)
-    logits, cache = T.prefill(params, prompts, cfg, cache_len=cache_len)
+    logits, cache = T.prefill(params, prompts, cfg, vision=vision, cache_len=cache_len)
     step = make_serve_step(cfg)
     if generator is None and temperature > 0.0:
         generator = torch.Generator(device=prompts.device).manual_seed(0)

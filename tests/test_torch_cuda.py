@@ -497,22 +497,26 @@ def test_moe_combine_repeats_bit_for_bit(cuda):
     assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "kimi-k2-1t-a32b", "mamba2-2.7b"])
-def test_moe_and_ssd_smoke_configs_on_the_card_match_the_host(cuda, arch):
-    """fp32 (TF32 off), the same weights: forward logits and the MoE aux
-    within fp32 summation noise (1e-4 relative to the largest logit), and
-    prefill plus decode caches of the same shapes and dtypes."""
+def _smoke_card_vs_host(cuda, arch):
+    """fp32 (TF32 off), the same weights (and vision input): forward logits
+    and the MoE aux within fp32 summation noise (1e-4 relative to the
+    largest logit), and prefill plus decode caches of the same shapes and
+    dtypes."""
     import dataclasses
     cfg = dataclasses.replace(registry.get_smoke(arch), compute_dtype=torch.float32)
     host = T.init(cfg, seed=4, device="cpu")
     card = T.init(cfg, seed=4, device=cuda)
     card.load_state_dict(host.state_dict())
-    tokens = torch.randint(1, cfg.vocab, (2, 24), generator=torch.Generator().manual_seed(5))
+    cpu_gen = torch.Generator().manual_seed(5)
+    tokens = torch.randint(1, cfg.vocab, (2, 24), generator=cpu_gen)
+    vision = (torch.randn(2, cfg.vision_tokens, cfg.cross_kv_dim, generator=cpu_gen)
+              if cfg.vision_tokens else None)
+    card_vision = None if vision is None else vision.to(cuda)
     with torch.inference_mode():
-        want, want_aux = T.forward(host, tokens, cfg)
-        got, aux = T.forward(card, tokens.to(cuda), cfg)
-        _, hc = T.prefill(host, tokens, cfg, cache_len=28)
-        _, cc = T.prefill(card, tokens.to(cuda), cfg, cache_len=28)
+        want, want_aux = T.forward(host, tokens, cfg, vision=vision)
+        got, aux = T.forward(card, tokens.to(cuda), cfg, vision=card_vision)
+        _, hc = T.prefill(host, tokens, cfg, vision=vision, cache_len=28)
+        _, cc = T.prefill(card, tokens.to(cuda), cfg, vision=card_vision, cache_len=28)
         _, cc = T.decode_step(card, tokens[:, :1].to(cuda), cc, 24, cfg)
     scale = want.abs().max().item()
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * scale)
@@ -520,3 +524,32 @@ def test_moe_and_ssd_smoke_configs_on_the_card_match_the_host(cuda, arch):
     for h, c in zip(hc, cc):
         assert {k: (v.shape, v.dtype) for k, v in h.items()} == \
             {k: (v.shape, v.dtype) for k, v in c.items()}
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "kimi-k2-1t-a32b", "mamba2-2.7b"])
+def test_moe_and_ssd_smoke_configs_on_the_card_match_the_host(cuda, arch):
+    _smoke_card_vs_host(cuda, arch)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "llama-3.2-vision-90b"])
+def test_rglru_and_vlm_smoke_configs_on_the_card_match_the_host(cuda, arch):
+    _smoke_card_vs_host(cuda, arch)
+
+
+@pytest.mark.parametrize("b,s,skv,h,hkv,d,kw", [
+    # recurrentgemma-9b's local layers (MQA at D 256) at twice the serve
+    # length, so that the band of window 2048 skips key blocks
+    (2, 4096, 4096, 16, 1, 256, dict(causal=True, window=2048)),
+    # llama-3.2-vision-90b's cross layer at the serve shape: 1601 keys
+    (8, 2048, 1601, 64, 8, 128, dict(causal=False)),
+])
+def test_flash_tc_kernel_at_the_rglru_and_vlm_serve_shapes(cuda, b, s, skv, h, hkv, d, kw):
+    g_ = _gen(cuda, d + skv)
+    q = torch.randn(b, s, h, d, generator=g_, device=cuda).bfloat16()
+    k = torch.randn(b, skv, hkv, d, generator=g_, device=cuda).bfloat16()
+    v = torch.randn(b, skv, hkv, d, generator=g_, device=cuda).bfloat16()
+    before = flash_attention_tc.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_tc.launches == before + 1
+    assert_flash_close(got, q, k, v, **kw)

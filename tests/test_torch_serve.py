@@ -8,7 +8,9 @@ tests/test_torch_transformer.py. Prompts are longer than gemma2's window of
 16, so its local layer decodes from the rolled cache. The MoE archs decode
 at T = B tokens a step, so their capacity is small (2 for B = 2, k = 2,
 E = 4) and pairs drop as in the reference; mamba2 decodes from its SSD
-state.
+state, recurrentgemma from its RG-LRU states and the rolled cache of its
+local layer, and the VLM from its cross layer's vision cache (both
+packages take the same fp32 ``vision``).
 """
 
 import jax.numpy as jnp
@@ -18,15 +20,16 @@ import torch
 
 from repro.serve import decode as jdecode
 from repro_torch.serve import decode as tdecode
-from test_torch_transformer import ARCHS, pair, tokens
+from test_torch_transformer import ARCHS, pair, tokens, vision
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_generate_tokens_equal_jax_in_fp32(arch):
     jp, jcfg, tp, tcfg = pair(arch, "float32")
     ids = tokens(5)
-    want = jdecode.generate(jp, jnp.asarray(ids), jcfg, max_new_tokens=6)
-    got = tdecode.generate(tp, torch.from_numpy(ids), tcfg, max_new_tokens=6)
+    jv, tv = vision(tcfg)
+    want = jdecode.generate(jp, jnp.asarray(ids), jcfg, max_new_tokens=6, vision=jv)
+    got = tdecode.generate(tp, torch.from_numpy(ids), tcfg, max_new_tokens=6, vision=tv)
     assert got.dtype == torch.int32 and got.shape == (2, 6)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -123,6 +126,36 @@ def test_batched_generate_left_padded_moe_and_ssd(arch):
     assert got == [[int(x) for x in row] for row in want]
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "llama-3.2-vision-90b"])
+def test_batched_generate_left_padded_rglru_and_vlm(arch):
+    """As above for the RG-LRU hybrid (the pad tokens run through the scan
+    and the local window) and the VLM (a vision input a request, the
+    batch's fourth row, which has no prompt, included)."""
+    jp, jcfg, tp, tcfg = pair(arch, "float32")
+    rng = np.random.RandomState(12)
+    prompts = [list(rng.randint(1, 128, n)) for n in (30, 20, 5)]
+    jv, tv = vision(tcfg, b=4)
+    jb = jdecode.RequestBatcher(batch_size=4, seq_len=32)
+    tb = tdecode.RequestBatcher(batch_size=4, seq_len=32)
+    jbuf, _, n = jb.pack(prompts)
+    tbuf, _, _ = tb.pack(prompts, device="cpu")
+    want = jb.unpack(jdecode.generate(jp, jbuf, jcfg, max_new_tokens=4, vision=jv), n)
+    got = tb.unpack(tdecode.generate(tp, tbuf, tcfg, max_new_tokens=4, vision=tv), n)
+    assert got == [[int(x) for x in row] for row in want]
+
+
+def test_generate_bf16_vlm_reads_its_vision():
+    """bf16 compute, bf16 cache: another vision input gives other tokens,
+    so the cross layer's prefilled cache reaches decode."""
+    _, _, tp, tcfg = pair("llama-3.2-vision-90b", "bfloat16")
+    ids = torch.from_numpy(tokens(13))
+    a = tdecode.generate(tp, ids, tcfg, max_new_tokens=6, vision=vision(tcfg, seed=1)[1])
+    b = tdecode.generate(tp, ids, tcfg, max_new_tokens=6, vision=vision(tcfg, seed=1)[1])
+    c = tdecode.generate(tp, ids, tcfg, max_new_tokens=6, vision=vision(tcfg, seed=2)[1])
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert int(a.min()) >= 0 and int(a.max()) < tcfg.vocab
+
+
 @pytest.mark.parametrize("kernel, cls", [
     ("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<...>", "sort / scan"),
     ("void at::native::bitonicSortKVInPlace<...>", "sort / scan"),
@@ -135,3 +168,41 @@ def test_profile_classes_split_the_moe_and_ssd_kernels(kernel, cls):
     scan's cumulative sums into their own class."""
     from repro_torch.launch.profile_step import classify
     assert classify(kernel) == cls
+
+
+def test_serve_config_cuts_the_vlm_to_one_pattern_cycle():
+    """The served VLM: 5 of its 100 layers (4 self-attention, 1 cross),
+    6,378,487,808 params; its vision input seeded, bf16, (B, 1601, 7680);
+    every other arch served whole and given no vision input."""
+    from repro_torch.configs import registry as tregistry
+    from repro_torch.launch import profile_serve as ps
+    cfg = ps.serve_config("llama-3.2-vision-90b")
+    assert cfg.kinds() == ("attn",) * 4 + ("cross",)
+    assert cfg.num_params() == 6_378_487_808
+    assert ps.serve_config("recurrentgemma-9b") == tregistry.get("recurrentgemma-9b")
+    v = ps.vision_input(cfg, 2, device="cpu")
+    assert v.shape == (2, 1601, 7680) and v.dtype == torch.bfloat16
+    assert torch.equal(v, ps.vision_input(cfg, 2, device="cpu"))
+    assert not torch.equal(v, ps.vision_input(cfg, 2, device="cpu", seed=1))
+    assert ps.vision_input(ps.serve_config("recurrentgemma-9b"), 2, device="cpu") is None
+
+
+@pytest.mark.parametrize("shape, masks, flops", [
+    ((8, 2048, 2048, 16, 8, 128), {"causal": True}, 137_506_062_336),
+    ((8, 2048, 2048, 16, 1, 256), {"causal": True, "window": 2048}, 275_012_124_672),
+    ((8, 2048, 2048, 64, 8, 128), {"causal": True}, 550_024_249_344),
+    ((8, 2048, 1601, 64, 8, 128), {"causal": False}, 859_530_330_112),
+    ((1, 6, 6, 1, 1, 1), {"causal": True, "window": 2}, 4 * 11),
+])
+def test_flash_bound_counts_the_pairs_the_masks_keep(shape, masks, flops):
+    """``profile_flash``'s operation count, which the flash bounds rest on:
+    4 D FLOP a (query, key) pair the masks keep, against a brute-force
+    count of the mask."""
+    from repro_torch.launch.profile_flash import kept_pairs
+    b, s, skv, h, _, d = shape
+    assert 4 * d * b * h * kept_pairs(s, skv, **masks) == flops
+    qi, kj = torch.arange(s)[:, None], torch.arange(skv)[None, :]
+    keep = (kj <= qi) if masks["causal"] else torch.ones(s, skv, dtype=torch.bool)
+    if "window" in masks:
+        keep &= kj > qi - masks["window"]
+    assert kept_pairs(s, skv, **masks) == int(keep.sum())

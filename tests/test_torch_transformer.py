@@ -13,6 +13,9 @@ here and there, which can flip a near-tie between a token's k-th and
 (k+1)-th expert and move that token's output by far more than any bf16
 tolerance (``tests/test_torch_moe.py`` holds ``moe_apply`` itself in bf16 on
 identical inputs, where the routing agrees exactly).
+
+The VLM's cross layers read the same fp32 ``vision`` input (numpy seed) on
+both sides; each side casts it to its compute dtype.
 """
 
 import dataclasses
@@ -31,7 +34,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import transformer as tT
 
 ARCHS = ("qwen3-1.7b", "gemma2-27b", "gemma-7b", "llama3-405b", "musicgen-medium",
-         "granite-moe-3b-a800m", "kimi-k2-1t-a32b", "mamba2-2.7b")
+         "granite-moe-3b-a800m", "kimi-k2-1t-a32b", "mamba2-2.7b", "recurrentgemma-9b",
+         "llama-3.2-vision-90b")
 MOE_ARCHS = ("granite-moe-3b-a800m", "kimi-k2-1t-a32b")
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -66,6 +70,16 @@ def tokens(seed, b=2, s=40, vocab=128):
     return np.random.RandomState(seed).randint(0, vocab, (b, s)).astype(np.int32)
 
 
+def vision(cfg, seed=11, b=2):
+    """(JAX, port) copies of one fp32 vision input (b, vision_tokens,
+    cross_kv_dim), or (None, None) for a model without cross layers."""
+    if not cfg.vision_tokens:
+        return None, None
+    v = np.random.RandomState(seed).randn(b, cfg.vision_tokens, cfg.cross_kv_dim)
+    v = v.astype(np.float32)
+    return jnp.asarray(v), torch.from_numpy(v)
+
+
 def _np(t):
     return t.detach().float().numpy()
 
@@ -76,8 +90,9 @@ def test_forward_logits_match_jax(arch, dtype):
     the same fp32 values in another order, 1e-5 relative)."""
     jp, jcfg, tp, tcfg = pair(arch, dtype)
     ids = tokens(1)
-    want, want_aux = jT.forward(jp, jnp.asarray(ids), jcfg)
-    got, aux = tT.forward(tp, torch.from_numpy(ids), tcfg)
+    jv, tv = vision(tcfg)
+    want, want_aux = jT.forward(jp, jnp.asarray(ids), jcfg, vision=jv)
+    got, aux = tT.forward(tp, torch.from_numpy(ids), tcfg, vision=tv)
     assert got.dtype == torch.float32 and got.shape == (2, 40, tcfg.vocab)
     assert aux.dtype == torch.float32 and aux.shape == ()
     if tcfg.mlp == "moe":
@@ -90,9 +105,11 @@ def test_forward_logits_match_jax(arch, dtype):
 
 @pytest.mark.parametrize("dtype, arch", CASES)
 def test_prefill_then_decode_match_jax(arch, dtype):
-    """A 40-token prompt (gemma2's window is 16, so its local layer's cache
-    is rolled; mamba2's chunk of 256 holds it whole), then 4 decode steps
-    from the same caches.
+    """A 40-token prompt (gemma2's and recurrentgemma's window is 16, so
+    their local layers' caches are rolled; mamba2's chunk of 256 holds it
+    whole, recurrentgemma's scan takes it in 3 chunks of 16, the last
+    padded), then 4 decode steps from the same caches (the VLM's cross
+    layer reads its vision cache).
 
     The caches are in the compute dtype. In fp32 a bf16 cache would round
     k and v that the two models computed apart by fp32 noise, now and then
@@ -104,10 +121,11 @@ def test_prefill_then_decode_match_jax(arch, dtype):
     jdt, tdt = DTYPES[dtype]
     ids = tokens(2)
     S, steps = ids.shape[1], 4
-    jlog, jcache = jT.prefill(jp, jnp.asarray(ids), jcfg, cache_len=S + steps,
+    jv, tv = vision(tcfg)
+    jlog, jcache = jT.prefill(jp, jnp.asarray(ids), jcfg, vision=jv, cache_len=S + steps,
                               cache_dtype=jdt)
-    tlog, tcache = tT.prefill(tp, torch.from_numpy(ids), tcfg, cache_len=S + steps,
-                              cache_dtype=tdt)
+    tlog, tcache = tT.prefill(tp, torch.from_numpy(ids), tcfg, vision=tv,
+                              cache_len=S + steps, cache_dtype=tdt)
     assert tlog.shape == (2, 1, tcfg.vocab)
     np.testing.assert_allclose(_np(tlog), np.asarray(jlog), **LOGIT_TOL[dtype])
     jlayers = convert.layers_from_jax(jax.tree.map(np.asarray, jcache), jcfg)
@@ -115,7 +133,11 @@ def test_prefill_then_decode_match_jax(arch, dtype):
         if kind == "ssd":
             _assert_ssd_state_matches(tc, jc, tcfg, dtype)
             continue
-        want_len = S + steps if kind == "attn" else tcfg.window
+        if kind == "rglru":
+            _assert_rglru_state_matches(tc, jc, tcfg, dtype)
+            continue
+        want_len = {"attn": S + steps, "local": tcfg.window,
+                    "cross": tcfg.vision_tokens}[kind]
         for name in ("k", "v"):
             assert tc[name].dtype == tdt
             assert tc[name].shape == (2, want_len, tcfg.n_kv_heads, tcfg.head_dim)
@@ -155,6 +177,22 @@ def _assert_ssd_state_matches(tc, jc, tcfg, dtype):
                                    err_msg=name, **tol)
 
 
+def _assert_rglru_state_matches(tc, jc, tcfg, dtype):
+    """An RG-LRU layer's prefill state: ``hidden`` fp32 (B, w), ``conv`` in
+    the compute dtype (B, W-1, w). fp32: the scan in another association
+    order (1e-4 relative, 1e-6 absolute); bf16: the conv state is the bf16
+    projection of the same prompt, and the fp32 hidden state sums inputs
+    that differ so, a rounding or three apart."""
+    rc = tcfg.rglru_cfg()
+    _, tdt = DTYPES[dtype]
+    assert tc["hidden"].dtype == torch.float32 and tc["hidden"].shape == (2, rc.width)
+    assert tc["conv"].dtype == tdt and tc["conv"].shape == (2, rc.conv_width - 1, rc.width)
+    tol = dict(rtol=1e-4, atol=1e-6) if dtype == "float32" else dict(rtol=2 ** -5, atol=2 ** -5)
+    for name in ("hidden", "conv"):
+        np.testing.assert_allclose(_np(tc[name]), np.asarray(jc[name], np.float32),
+                                   err_msg=name, **tol)
+
+
 def test_prefill_launches_no_kernel_on_the_host():
     _, _, tp, tcfg = pair("qwen3-1.7b")
     ops.reset_launch_counts()
@@ -171,13 +209,15 @@ def test_forward_gradients_on_the_host_match_jax(arch):
     (1e-5 of the gradient's largest element, as elements cancel)."""
     jp, jcfg, _, tcfg = pair(arch)
     ids = tokens(5)
+    jv, tv = vision(tcfg)
     w = np.random.RandomState(6).randn(2, 40, tcfg.vocab).astype(np.float32)
-    jg = jax.grad(lambda p: (jT.forward(p, jnp.asarray(ids), jcfg)[0] * w).sum())(jp)
+    jg = jax.grad(lambda p: (jT.forward(p, jnp.asarray(ids), jcfg, vision=jv)[0]
+                             * w).sum())(jp)
     want = convert.transformer_from_jax(jax.tree.map(np.asarray, jg), tcfg, device="cpu")
     model = tT.init(tcfg, seed=0, device="cpu")
     model.load_state_dict(convert.transformer_from_jax(
         jax.tree.map(np.asarray, jp), tcfg, device="cpu"))
-    logits, _ = tT.forward(model, torch.from_numpy(ids), tcfg)
+    logits, _ = tT.forward(model, torch.from_numpy(ids), tcfg, vision=tv)
     (logits * torch.from_numpy(w)).sum().backward()
     for name, p in model.named_parameters():
         ref = want[name].numpy()
@@ -223,22 +263,6 @@ def test_scan_blocks_off_keeps_the_layer_order():
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("arch", [a for a in jregistry.ARCH_IDS if a not in ARCHS])
-def test_unported_archs_raise_with_their_slice(arch):
-    assert tregistry.ARCH_IDS == jregistry.ARCH_IDS
-    with pytest.raises(NotImplementedError, match="slice G"):
-        tregistry.get(arch)
-    with pytest.raises(NotImplementedError, match="slice G"):
-        tregistry.get_smoke(arch)
-
-
-@pytest.mark.parametrize("kind", ["rglru", "cross"])
-def test_unported_layer_kinds_raise(kind):
-    cfg = dataclasses.replace(tregistry.get_smoke("qwen3-1.7b"), pattern=(kind,))
-    with pytest.raises(NotImplementedError, match="slice G"):
-        tT.init(cfg, device="cpu")
-
-
 def test_qwen3_source_names_the_1_7b_model():
     cfg = tregistry.get("qwen3-1.7b")
     assert cfg.source == "hf:Qwen/Qwen3-1.7B"
@@ -262,15 +286,30 @@ def test_moe_and_ssd_sources_and_sizes(arch, source, n_params, n_active):
         tregistry.get(arch), source="")
 
 
-def test_registry_ports_eight_archs_and_names_the_slice_of_two():
-    ported = [a for a in tregistry.ARCH_IDS if a not in
-              ("recurrentgemma-9b", "llama-3.2-vision-90b")]
-    assert list(tregistry.PORTED) == ported and sorted(ported) == sorted(ARCHS)
-    for arch in ported:
+@pytest.mark.parametrize("arch, source, n_params", [
+    ("recurrentgemma-9b", "arXiv:2402.19427", 9_395_240_960),
+    # the JAX copy names the 11B model, whose widths are not these
+    ("llama-3.2-vision-90b", "hf:meta-llama/Llama-3.2-90B-Vision", 87_644_176_384),
+])
+def test_rglru_and_vlm_sources_and_sizes(arch, source, n_params):
+    cfg = tregistry.get(arch)
+    assert cfg.source == source
+    assert cfg.num_params() == cfg.active_params() == n_params
+
+
+def test_vlm_needs_its_vision_input():
+    _, _, tp, tcfg = pair("llama-3.2-vision-90b")
+    ids = torch.from_numpy(tokens(4))
+    for entry in (tT.forward, tT.prefill):
+        with pytest.raises(ValueError, match="cross layers: pass vision"):
+            entry(tp, ids, tcfg)
+
+
+def test_registry_ports_all_ten_archs_with_the_reference_kinds():
+    assert tregistry.ARCH_IDS == jregistry.ARCH_IDS and sorted(ARCHS) == sorted(tregistry.ARCH_IDS)
+    for arch in tregistry.ARCH_IDS:
         for getter in (tregistry.get, tregistry.get_smoke):
-            cfg = getter(arch)
-            cfg.check_ported()
-            assert cfg.kinds() == getattr(jregistry, getter.__name__)(arch).kinds()
+            assert getter(arch).kinds() == getattr(jregistry, getter.__name__)(arch).kinds()
 
 
 def test_compute_params_keeps_the_router_and_ssd_vectors_fp32():
