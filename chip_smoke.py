@@ -16,7 +16,16 @@
    D 256 with 16 query heads on one kv head under a band that skips, and
    unmasked over 1601 keys, a multiple of no tile), bf16 through the bf16
    tensor-core kernel and fp32 through the 3xTF32 one (the wrapper picks by
-   dtype), each under ``kernels/ref.py::flash_attention_tol``;
+   dtype), each under ``kernels/ref.py::flash_attention_tol``; and the
+   flash backward (``csrc/flash_attn_bwd.cu``) in bf16 and fp32 against its
+   plain version from the forward kernel's o and lse, under
+   ``ref.flash_attention_bwd_tol``, at Qwen3-1.7B's training shape (4 x
+   2048 tokens), Qwen3's and granite's prefill shapes (D 128, 64),
+   recurrentgemma's local shape (D 256, one kv head, window 2048, bands
+   skipped), the VLM's cross shape (Skv 1601, unmasked) and a softcap of
+   50 with q and k scaled x4, so that the logits reach the cap (fp32 at
+   batch 2, against the plain version in fp64), elementwise and on each
+   output's norm;
 4. times each kernel beside its bound (the larger of bytes over the HBM
    rate and operations over the peak for the inputs' type; fp32 flash:
    three TF32 products, with the fp32 FMA bound beside it), its plain
@@ -26,7 +35,9 @@
    (32 | 64, 1000) fp32 and (4096, 151936) fp32 and bf16; flash through
    ``repro_torch.launch.profile_flash``, the fp32 kernel at the smoke
    config's shape and at the Qwen3-1.7B prefill shape, the bf16 kernel also
-   at the other served archs' prefill shapes (``profile_flash.SERVE_SHAPES``);
+   at the other served archs' prefill shapes (``profile_flash.SERVE_SHAPES``),
+   and the backward at the training shape (bf16) and the smoke config's
+   (fp32), and in bf16 at the served shapes, beside SDPA's backward;
 5. initialises an NCCL process group of one rank (a ``dist.FileStore`` in a
    temporary directory), builds the 1 x 1 torus grid on it, and checks that
    ``reduce_scatter_tensor``, ``all_reduce`` and ``all_gather_into_tensor``
@@ -68,15 +79,28 @@
    tensor-core flash kernel once an attention or cross layer (28, 32, 0, 12,
    5) or on a decode step that launches it at all, and frees its model
    before the next;
-8. runs a tiny ResNet two steps (fp32 comm), and the smoke configs of all
+8. trains full-width Qwen3-1.7B through ``repro_torch.launch.train.build``
+   on the world-1 NCCL grid: 3 steps of 2 x 2048 tokens, then 3 of 4 x
+   2048, schedule B, smoothing 0.1, torus2d ``fuse=False`` bf16 comm, LARS
+   over the reference's 13 stacked leaves (310 port leaves); fails on a
+   non-finite loss, a skipped step, or launches other than 28 flash
+   forwards and 28 flash backwards, one ``ls_xent`` forward and backward
+   and two LARS a step; prints each stage's step ms, tokens/s, the peak
+   device memory and the sync's layout;
+9. runs a tiny ResNet two steps (fp32 comm), and the smoke configs of all
    ten archs (fp32, so the fp32 flash kernel) through ``generate``, on the
    card and on the CPU from the same weights and inputs (the VLM's from one
    fp32 vision input), and fails if they disagree or if the card's prefill
    does not launch the flash kernel once an attention or cross layer; the
    tiny card run must
    also equal, bit for bit, the same run with ``sync_tree`` taken out (at
-   one rank the fp32 sync multiplies by 1.0 and exchanges nothing);
-9. destroys the process group, and prints one ``{"kernels": [...]}``
+   one rank the fp32 sync multiplies by 1.0 and exchanges nothing); then
+   one fp32 training step of each smoke config (``make_train_step`` with
+   the launcher's loss and the stacked-leaf groups) on the card and the
+   host from the same weights and batch, which must agree within
+   ``SMOKE_STEP_TOL`` and launch the fp32 flash backward once an attention
+   or cross layer on the card;
+10. destroys the process group, and prints one ``{"kernels": [...]}``
    line, the card line again, and as the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -117,9 +141,27 @@ TINY_TOL = 1e-3
 # the output's rounding plus one bf16 rounding of each probability before
 # P.V on the tensor cores
 FLASH_TOL = "fp32 1e-5 + 1e-5|exact|; bf16 1e-5 + 2^-7|ref| + 2^-8 P.|v|"
+# the flash backward vs its plain version on the same inputs:
+# kernels/ref.py::flash_attention_bwd_tol, derived from the roundings the
+# kernel makes: fp32 (FMAs, P and dS in fp32) against the exact answer (the
+# plain version in fp64); bf16 (tensor cores, P and dS rounded to bf16)
+# against the fp32 plain version. Elementwise, with M_d the sums' magnitudes
+# (|dS|.|k| and the like) and M_w their error weights; and on each output's
+# norm, with the bf16 roundings at sqrt(3) times their rms
+FLASH_BWD_TOL = ("fp32 1e-9 + 2^-24|exact| + (D + 8) 2^-24 M_w + (n + 2) 2^-24 M_d; "
+                 "bf16 1e-9 + 2^-7|ref| + 2^-8 M_d + 4 (D + 8) 2^-24 M_w + 4 (n + 2) 2^-24 "
+                 "M_d; norm: bf16 2^-8 (sqrt(R) + 2|ref|) + |the sums' terms|")
 # smoke transformers, fp32 compute, card vs host: matmuls and the attention
 # sum in different orders; two or three layers keep that near fp32 noise
 SMOKE_LOGIT_TOL = 1e-4           # abs and relative, on prefill logits
+# one fp32 training step of each smoke config, card vs host: the same sums in
+# other orders, then LARS at the step's learning rate; the 8-rank fp32 gate's
+# limits (tests/test_torch_trainer_dist.py): loss rtol 1e-5, params 1e-5 +
+# 1e-4 |host|
+SMOKE_STEP_TOL = (1e-5, 1e-5, 1e-4)   # (loss rtol, params atol, params rtol)
+# the full-width LM training phase: Qwen3-1.7B, two batch stages of
+# LM_STAGE_STEPS steps, per-step sequences of LM_SEQ tokens
+LM_ARCH, LM_SEQ, LM_STAGES, LM_STAGE_STEPS = "qwen3-1.7b", 2048, (2, 4), 3
 # the full-width serve phases: dense attention, the MoE MLP, the SSD mixer,
 # the RG-LRU hybrid, the VLM's cross-attention
 SERVE_ARCHS = ("qwen3-1.7b", "granite-moe-3b-a800m", "mamba2-2.7b", "recurrentgemma-9b",
@@ -225,7 +267,193 @@ def time_flash(torch, gen) -> dict:
         t = profile_flash.time_flash("flash_attn", shape, torch.bfloat16, masks, what, gen)
         print(f"time flash_attn ({t['at']}): {t}")
         out["flash_attn"]["serve"].append({k: t[k] for k in keys})
+    # the backward: bf16 at the training shape and the served shapes, fp32 at
+    # the smoke config's
+    for name, shape, dtype, masks, what in profile_flash.BWD_SHAPES:
+        out[name] = profile_flash.time_flash_bwd(name, shape, dtype, masks, what, gen)
+        print(f"time {name} ({out[name]['at']}): {out[name]}")
+    bkeys = ("ms", "eager_ms", "bound_ms", "fma_bound_ms", "plain_ms", "library_ms",
+             "tflops_per_s", "at")
+    out["flash_attn_bwd"]["serve"] = []
+    for shape, masks, what in profile_flash.SERVE_SHAPES:
+        t = profile_flash.time_flash_bwd("flash_attn_bwd", shape, torch.bfloat16, masks,
+                                         what, gen)
+        print(f"time flash_attn_bwd ({t['at']}): {t}")
+        out["flash_attn_bwd"]["serve"].append({k: t.get(k) for k in bkeys})
     return out
+
+
+def check_flash_bwd(torch, gen) -> dict:
+    """The backward kernel in both dtypes against its plain version at the
+    training and serve paths' shapes and a softcap case whose logits reach
+    the cap (``profile_flash.BWD_CHECKS``; bf16: the plain version in fp32;
+    fp32: in fp64, the exact answer, at batch 2), from the forward kernel's
+    o and lse; fails over ``ref.flash_attention_bwd_tol``, elementwise or
+    normwise. Returns the max abs error and worst err/tol by dtype."""
+    from repro_torch.launch import profile_flash
+
+    worst = {torch.bfloat16: [0.0, 0.0, 0.0], torch.float32: [0.0, 0.0, 0.0]}
+    for shape, masks, mag, what in profile_flash.BWD_CHECKS:
+        for dtype in (torch.bfloat16, torch.float32):
+            r = profile_flash.check_flash_bwd(shape, masks, mag, dtype, gen)
+            if r["launches"] != 1:
+                fail(f"{r['kernel']} did not count its launch")
+            def each(key, fmt):
+                return "/".join(format(e[key], fmt) for e in r["errors"])
+            print(f"check flash_attn_bwd {r['at']} ({what}): max_abs_err dq/dk/dv "
+                  f"{each('max_abs_err', '.3e')}, err/tol {each('err_over_tol', '.3f')}, "
+                  f"norm err/limit {each('norm_over_limit', '.3f')} ({r['kernel']})")
+            if r["worst_err_over_tol"] > 1 or r["worst_norm_over_limit"] > 1:
+                fail(f"flash_attn_bwd off at {r['at']} ({what}): worst err/tol "
+                     f"{r['worst_err_over_tol']:.3g}, norm err/limit "
+                     f"{r['worst_norm_over_limit']:.3g}")
+            w = worst[dtype]
+            worst[dtype] = [max(w[0], r["max_abs_err"]), max(w[1], r["worst_err_over_tol"]),
+                            max(w[2], r["worst_norm_over_limit"])]
+    print(f"check flash_attn_bwd: max_abs_err bf16 {worst[torch.bfloat16][0]:.3e}, fp32 "
+          f"{worst[torch.float32][0]:.3e}; worst err/tol bf16 {worst[torch.bfloat16][1]:.3f}, "
+          f"fp32 {worst[torch.float32][1]:.3f}; worst norm err/limit bf16 "
+          f"{worst[torch.bfloat16][2]:.3f}, fp32 {worst[torch.float32][2]:.3f} "
+          f"(tol {FLASH_BWD_TOL})")
+    return {"bf16": tuple(worst[torch.bfloat16]), "fp32": tuple(worst[torch.float32])}
+
+
+def train_lm(torch, dev, grid, card: str) -> dict:
+    """Qwen3-1.7B at full width through ``repro_torch.launch.train.build`` on
+    the world-1 NCCL grid: two batch stages (``LM_STAGES`` sequences of
+    ``LM_SEQ`` tokens, ``LM_STAGE_STEPS`` steps each), schedule B,
+    smoothing 0.1, torus2d ``fuse=False`` bf16, LARS over the reference's
+    13 stacked leaves. Fails on a non-finite loss, a skipped step, or a
+    step that does not launch the flash forward and backward once an
+    attention layer, ``ls_xent`` forward and backward once and LARS
+    twice."""
+    from repro_torch.core import grad_sync
+    from repro_torch.kernels import ops
+    from repro_torch.launch import profile_trainer
+    from repro_torch.launch import train as launch_train
+
+    t0 = time.perf_counter()
+    run = launch_train.build(LM_ARCH, seq=LM_SEQ, batch_stages=LM_STAGES, steps=None,
+                             stage_steps=LM_STAGE_STEPS, device=dev, grid=grid, log_every=1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = run.state.params
+    n_params = sum(p.numel() for p in params.values())
+    layout = grad_sync.bucket_layout(params, run.trainer.cfg.grad_sync, run.groups)
+    per_leaf = sum(1 for b in layout if b["mode"] == "per_leaf")
+    sync_bytes = sum(b["nbytes"] for b in layout)
+    print(f"train {LM_ARCH}: {n_params} parameters, {len(params)} port leaves in "
+          f"{len(run.groups)} reference leaves (LARS groups); sync torus2d fuse=False bf16: "
+          f"{len(layout)} exchanges ({per_leaf} per-leaf, {len(layout) - per_leaf} grouped), "
+          f"{sync_bytes} B; init {init_s:.1f} s")
+    if (len(params), len(run.groups)) != (310, 13):
+        fail(f"{LM_ARCH}: {len(params)} port leaves in {len(run.groups)} groups, want 310 in 13")
+    n_attn = attention_layers(run.cfg)
+    plan = run.trainer.plan
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, history = run.trainer.run(run.state, log=lambda s: None)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rows = [h for h in history if h["kind"] == "metric"]
+    for r in rows:
+        print(f"  step {r['step']:2d} gb {r['global_batch']} loss {r['loss']:.5f} lr "
+              f"{r['lr']:.5f} skipped {r['skipped']} grad_norm {r['grad_norm']:.4f} step_ms "
+              f"{1e3 * r['wall_s']:.2f}")
+    steps = len(rows)
+    if steps != plan.total_steps or state.step != plan.total_steps or \
+            [s.num_steps for s in plan.stages] != [LM_STAGE_STEPS] * len(LM_STAGES):
+        fail(f"{LM_ARCH}: ran {steps} steps, plan {[s.num_steps for s in plan.stages]}")
+    for r in rows:
+        if not (r["loss"] == r["loss"] and abs(r["loss"]) < float("inf")) or r["skipped"]:
+            fail(f"{LM_ARCH} step {r['step']}: loss {r['loss']}, skipped {r['skipped']}")
+    want = {"lars_update": 2 * steps, "ls_xent_fwd": steps, "ls_xent_bwd": steps,
+            "flash_attn": n_attn * steps, "flash_attn_f32": 0,
+            "flash_attn_bwd": n_attn * steps, "flash_attn_bwd_f32": 0}
+    if counts != want:
+        fail(f"{LM_ARCH} training launched {counts}, want {want}")
+    stages = profile_trainer.stage_medians(plan, rows)
+    for st in stages:
+        st["tokens_per_s"] = st["global_batch"] * LM_SEQ / (st["steady_median_ms"] / 1e3)
+        print(f"train {LM_ARCH} stage {st['global_batch']} x {LM_SEQ} tokens: step ms "
+              f"{[round(w, 2) for w in st['step_ms']]}, steady median (first step excluded) "
+              f"{st['steady_median_ms']:.2f} ms, {st['tokens_per_s']:.0f} tokens/s ({card})")
+    print(f"train {LM_ARCH}: {steps} steps in {run_s:.1f} s, launches {counts}, peak device "
+          f"memory {peak / 2**30:.2f} GiB ({card})")
+    del run, state, params, history
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": counts, "stages": stages, "peak_gib": peak / 2**30,
+            "exchanges": len(layout), "per_leaf_exchanges": per_leaf,
+            "sync_bytes": sync_bytes, "port_leaves": 310, "groups": 13,
+            "seq": LM_SEQ, "init_s": init_s, "run_s": run_s}
+
+
+def smoke_train_card_vs_host(torch, grid) -> int:
+    """One fp32 training step of each of the ten smoke configs through
+    ``make_train_step`` at world 1, with the launcher's loss and the
+    reference's stacked leaves, from the same weights and batch on the card
+    and the host: the loss and every parameter after LARS within
+    ``SMOKE_STEP_TOL``, and the card's step launching the fp32 flash
+    backward once an attention or cross layer. Returns those launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.core.grad_sync import GradSyncConfig
+    from repro_torch.core.topology import TorusGrid
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.train.state import TrainState
+    from repro_torch.train.trainer import TrainerConfig, make_train_step
+
+    loss_rtol, p_atol, p_rtol = SMOKE_STEP_TOL
+    tcfg = TrainerConfig(schedule="B", grad_sync=GradSyncConfig(
+        strategy="torus2d", fuse=False, comm_dtype=torch.float32))
+    card_launches = 0
+    for arch in registry.ARCH_IDS:
+        cfg = dataclasses.replace(registry.get_smoke(arch), compute_dtype=torch.float32)
+        host = T.init(cfg, seed=4, device="cpu")
+        g = torch.Generator().manual_seed(5)
+        with torch.no_grad():
+            for name, p in host.named_parameters():
+                if "norm_scale" in name:
+                    p.normal_(0.0, 0.3, generator=g)
+        groups = convert.leaf_groups(dict(host.named_parameters()), cfg)
+        rng = np.random.RandomState(6)
+        batch = [torch.from_numpy(rng.randint(0, cfg.vocab, (4, 48))) for _ in range(2)]
+        if cfg.vision_tokens:
+            batch.append(torch.from_numpy(
+                rng.randn(4, cfg.vision_tokens, cfg.cross_kv_dim).astype(np.float32)))
+        got = {}
+        for d in ("cpu", "cuda"):
+            params = {k: p.detach().to(d) for k, p in host.named_parameters()}
+            step = make_train_step(launch_train.loss_fn_for(cfg, SMOOTHING), tcfg,
+                                   grid if d == "cuda" else TorusGrid(), groups)
+            ops.reset_launch_counts()
+            st, m = step(TrainState.create(params), tuple(t.to(d) for t in batch), 0.05, 4)
+            got[d] = ({k: v.cpu() for k, v in st.params.items()}, float(m["loss"]),
+                      ops.launch_counts()["flash_attn_bwd_f32"], int(m["skipped"]))
+        (pc, lc, nc, sc), (ph, lh, nh, sh) = got["cuda"], got["cpu"]
+        l_err = abs(lc - lh) / abs(lh)
+        p_err = max((pc[k] - v).abs().max().item() for k, v in ph.items())
+        ok = l_err <= loss_rtol and all(bool(((pc[k] - v).abs() <= p_atol + p_rtol * v.abs())
+                                             .all()) for k, v in ph.items())
+        print(f"{arch} smoke fp32 train step, card vs host: loss rel err {l_err:.3e}, params "
+              f"max_abs_err {p_err:.3e} (tol loss {loss_rtol:g}, params {p_atol:g} + "
+              f"{p_rtol:g}|host|), flash_attn_bwd_f32 launches card {nc} host {nh}")
+        if not ok or sc or sh:
+            fail(f"{arch} smoke train step: the card disagrees with the host")
+        if nc != attention_layers(cfg) or nh != 0:
+            fail(f"{arch} smoke train step: flash backward launches card {nc}, host {nh}")
+        card_launches += nc
+    return card_launches
 
 
 def attention_layers(cfg) -> int:
@@ -276,7 +504,8 @@ def serve(torch, dev, arch: str) -> dict:
           f"({n_real * NEW / gen_s:.1f} generated tokens/s), launches {counts}, "
           f"peak device memory {peak / 2**30:.2f} GiB")
     want = {"lars_update": 0, "ls_xent_fwd": 0, "ls_xent_bwd": 0,
-            "flash_attn": n_attn, "flash_attn_f32": 0}
+            "flash_attn": n_attn, "flash_attn_f32": 0, "flash_attn_bwd": 0,
+            "flash_attn_bwd_f32": 0}
     if counts != want:
         fail(f"generate launched {counts}, want {want}")
     if len(results) != len(prompts) or any(len(r) != NEW for r in results):
@@ -532,7 +761,8 @@ def supervised(torch, grid, model, data_fn, loss_fn, plan, sync, card: str) -> d
             if not all(verdict.values()):
                 fail(f"the chaos or resumed run differs from the clean run: {verdict}")
             want = {"lars_update": 2 * total, "ls_xent_fwd": total, "ls_xent_bwd": total,
-                    "flash_attn": 0, "flash_attn_f32": 0}
+                    "flash_attn": 0, "flash_attn_f32": 0, "flash_attn_bwd": 0,
+                    "flash_attn_bwd_f32": 0}
             if counts != want:
                 fail(f"supervised launches {counts}, want {want}")
 
@@ -748,6 +978,9 @@ def run(torch, store_dir: str) -> int:
           f"err/tol {bwd_ratio:.3g} (tol {XENT_BWD_TOL})")
 
     flash_err = check_flash(torch, dev, gen)
+    t0 = time.perf_counter()
+    flash_bwd_err = check_flash_bwd(torch, gen)
+    print(f"phase check flash_attn_bwd: {time.perf_counter() - t0:.1f} s")
 
     # -- timing at the main path's shapes ------------------------------------
     lars_elems = sum(p.numel() for p in ps)
@@ -781,7 +1014,9 @@ def run(torch, store_dir: str) -> int:
         for name, t in xent_times[rows, vocab, dtype].items():
             print(f"time {name} ({what}): {t}")
 
+    t0 = time.perf_counter()
     flash_time = time_flash(torch, gen)
+    print(f"phase time flash (forward and backward): {time.perf_counter() - t0:.1f} s")
 
     # -- NCCL at one rank, and the grid the main path syncs over -------------
     grid = nccl_one_rank(torch, dev, store_dir)
@@ -824,7 +1059,8 @@ def run(torch, store_dir: str) -> int:
         if row["skipped"]:
             fail(f"step {row['step']} was skipped by the guard")
     want = {"lars_update": 2 * steps, "ls_xent_fwd": steps, "ls_xent_bwd": steps,
-            "flash_attn": 0, "flash_attn_f32": 0}
+            "flash_attn": 0, "flash_attn_f32": 0, "flash_attn_bwd": 0,
+            "flash_attn_bwd_f32": 0}
     if counts != want:
         fail(f"launch counts {counts}, want {want}")
     for st in profile_trainer.stage_medians(plan, history):
@@ -864,6 +1100,11 @@ def run(torch, store_dir: str) -> int:
         gc.collect()                       # the phase's model goes before the next
         torch.cuda.empty_cache()
 
+    # -- the LM training path: full-width Qwen3-1.7B ---------------------------
+    t0 = time.perf_counter()
+    lm = train_lm(torch, dev, grid, card)
+    print(f"phase train {LM_ARCH}: {time.perf_counter() - t0:.1f} s")
+
     # -- small input: the card's path against the host's ----------------------
     tiny = resnet.ResNetConfig.tiny(compute_dtype=torch.float32)
     tmodel = {d: resnet.init(tiny, seed=3, device=d) for d in ("cpu", "cuda")}
@@ -900,7 +1141,8 @@ def run(torch, store_dir: str) -> int:
         fail("tiny ResNet on the card disagrees with the host")
     # at one rank the fp32 sync is the identity: the run equals, bit for
     # bit, the same run with sync_tree taken out
-    with unittest.mock.patch.object(grad_sync, "sync_tree", lambda g, grid, cfg: g):
+    with unittest.mock.patch.object(grad_sync, "sync_tree",
+                                    lambda g, grid, cfg, groups=None: g):
         unsynced, unsynced_losses = tiny_run("cuda")
     same = (unsynced_losses == tlosses["cuda"]
             and all(torch.equal(unsynced[k], v) for k, v in finals["cuda"].items()))
@@ -909,6 +1151,9 @@ def run(torch, store_dir: str) -> int:
     if not same:
         fail("the fp32 sync at one rank changed the tiny ResNet's run")
     f32_launches = smoke_card_vs_host(torch)
+    t0 = time.perf_counter()
+    bwd_f32_launches = smoke_train_card_vs_host(torch, grid)
+    print(f"phase smoke train steps, card vs host: {time.perf_counter() - t0:.1f} s")
 
     # -- report ---------------------------------------------------------------
     sources = {
@@ -922,6 +1167,12 @@ def run(torch, store_dir: str) -> int:
                        "src/repro/kernels/flash_attn.py:34", flash_err["bf16"][0]),
         "flash_attn_f32": ("cuda", "src/repro_torch/csrc/flash_attn.cu",
                            "src/repro/kernels/flash_attn.py:34", flash_err["fp32"][0]),
+        # the backward has no TPU kernel: the forward's gradient, which the
+        # reference takes by autodiff of its plain attention
+        "flash_attn_bwd": ("cuda", "src/repro_torch/csrc/flash_attn_bwd.cu",
+                           "src/repro/kernels/flash_attn.py:34", flash_bwd_err["bf16"][0]),
+        "flash_attn_bwd_f32": ("cuda", "src/repro_torch/csrc/flash_attn_bwd.cu",
+                               "src/repro/kernels/flash_attn.py:34", flash_bwd_err["fp32"][0]),
     }
     main_rows = plan.stages[-1].global_batch
     measured = {"lars_update": timing["lars_update"],
@@ -939,11 +1190,19 @@ def run(torch, store_dir: str) -> int:
     # five full-width archs in bf16, or the fp32 smoke configs' prefills
     by_path = {name: {"resnet50": counts[name], "supervised": sup["counts"][name]}
                for name in ("lars_update", "ls_xent_fwd", "ls_xent_bwd")}
+    for name in ("lars_update", "ls_xent_fwd", "ls_xent_bwd"):
+        by_path[name][f"{LM_ARCH} training"] = lm["counts"][name]
     by_path["flash_attn"] = {arch: r["counts"]["flash_attn"] for arch, r in served.items()}
+    by_path["flash_attn"][f"{LM_ARCH} training"] = lm["counts"]["flash_attn"]
+    by_path["flash_attn_bwd"] = {f"{LM_ARCH} training": lm["counts"]["flash_attn_bwd"]}
     launches = {**{name: sum(v.values()) for name, v in by_path.items()},
-                "flash_attn_f32": f32_launches}
+                "flash_attn_f32": f32_launches, "flash_attn_bwd_f32": bwd_f32_launches}
     # the flash checks' worst err/tol over their shapes, by kernel
-    check_ratio = {"flash_attn": flash_err["bf16"][1], "flash_attn_f32": flash_err["fp32"][1]}
+    check_ratio = {"flash_attn": flash_err["bf16"][1], "flash_attn_f32": flash_err["fp32"][1],
+                   "flash_attn_bwd": flash_bwd_err["bf16"][1],
+                   "flash_attn_bwd_f32": flash_bwd_err["fp32"][1]}
+    norm_ratio = {"flash_attn_bwd": flash_bwd_err["bf16"][2],
+                  "flash_attn_bwd_f32": flash_bwd_err["fp32"][2]}
     kernels = []
     for name, (route, src, replaces, err) in sources.items():
         t = measured[name]
@@ -962,12 +1221,15 @@ def run(torch, store_dir: str) -> int:
                                  "prefill", "serve") if k in t},
             **({"lm": xent_lm[name]} if name in xent_lm else {}),
             **({"worst_err_over_tol": check_ratio[name]} if name in check_ratio else {}),
+            **({"worst_norm_over_limit": norm_ratio[name]} if name in norm_ratio else {}),
             "rate": t.get("rate", "fp32 67 TFLOP/s, HBM 3.35 TB/s"),
             "at": t["at"],
         })
     print(json.dumps({"serve": {arch: {k: v for k, v in r.items() if k != "counts"}
                                 for arch, r in served.items()}, "card": card}))
     print(json.dumps({"supervised": {k: v for k, v in sup.items() if k != "counts"},
+                      "card": card}))
+    print(json.dumps({"train_lm": {LM_ARCH: {k: v for k, v in lm.items() if k != "counts"}},
                       "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -112,6 +112,43 @@ def jax_path(name: str) -> str:
     return name.replace(".", "/").lower()
 
 
+def is_stacked(path: str) -> bool:
+    """Whether a JAX path of ``leaf_groups`` is a stacked block leaf (its
+    array leads with the layer dim, whatever the count of layers)."""
+    return path.startswith("blocks/")
+
+
+def leaf_groups(names, cfg=None) -> tuple[tuple[str, tuple[str, ...]], ...]:
+    """The leaves of the reference's tree that the port's ``names`` form, in
+    ``jax.tree_util`` flatten order: ``(JAX path, port names stacked into
+    it)`` a leaf.
+
+    With a transformer's ``cfg`` (``n_prefix``/``n_blocks``), the JAX leaf
+    ``blocks/<j>/<rest>`` stacks ``layers.<n_prefix + b * len(pattern) +
+    j>.<rest>`` over b = 0 .. n_blocks - 1, in b order, as
+    ``transformer_from_jax`` unstacks it; a prefix layer is
+    ``prefix/<i>/<rest>``. Every other leaf (``embed``, ``final_norm``,
+    ``unembed``, and every leaf without a ``cfg``, as the ResNet's) is a
+    group of one. The groups depend on the names and the config alone:
+    build them once a model.
+    """
+    stacked: dict[str, list[tuple[int, str]]] = {}
+    for name in names:
+        jname, b = name, 0
+        head, _, rest = name.partition(".")
+        if cfg is not None and head == "layers":
+            idx, _, rest = rest.partition(".")
+            i = int(idx)
+            if i < cfg.n_prefix:
+                jname = f"prefix.{i}.{rest}"
+            else:
+                b, j = divmod(i - cfg.n_prefix, len(cfg.pattern))
+                jname = f"blocks.{j}.{rest}"
+        stacked.setdefault(jname, []).append((b, name))
+    return tuple((jax_path(jname), tuple(n for _, n in sorted(stacked[jname])))
+                 for jname in jax_order(stacked))
+
+
 def _listify(node):
     if not isinstance(node, dict):
         return node

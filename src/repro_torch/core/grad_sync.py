@@ -15,6 +15,18 @@ Two modes, chosen by ``fuse``:
   exchanged on its own along its leading dimension (padded to X * Y); the
   small ones are raveled into shared buffers, one all-reduce a bucket.
 
+**Stacked leaves.** A JAX transformer stacks each repeated layer's leaf
+over its layers (``blocks/0/mixer/q/kernel``); the port keeps a leaf a
+layer. Every function here takes the reference's leaves as ``groups``
+(``convert.leaf_groups``: a JAX path and the port names stacked into it)
+and plans with a group as the one leaf the reference sees: its size, its
+shape (the members' with a leading layer dim), its place in the JAX order.
+A large group is exchanged as the stacked tensor (``torch.stack``, then
+unstacked), so its flat layout, ring chunks and bf16 sums are the
+reference's; a group in a shared bucket is its members raveled in layer
+order, which is the stacked tensor's ravel. Without ``groups`` every leaf
+is its own group (the ResNet).
+
 **Leaf order.** The reference walks the JAX tree with
 ``jax.tree_util.tree_flatten_with_path``: dict keys sorted, list indices in
 numeric order, and matches tags against paths such as
@@ -88,11 +100,13 @@ def _require_resolved(bucket_bytes) -> int:
 
 
 class _Leaf(NamedTuple):
-    name: str                # the port's name (``stages.0.1.conv1.kernel``)
+    """One leaf of the reference: a group of the port's leaves."""
+    names: tuple[str, ...]   # the port's names stacked into it, in layer order
     path: str                # the reference's (``stages/0/1/conv1/kernel``)
     numel: int
-    shape: tuple[int, ...]
+    shape: tuple[int, ...]   # the reference's: a stacked leaf leads with its layers
     dtype: torch.dtype
+    stacked: bool
 
 
 class _Exchange(NamedTuple):
@@ -183,11 +197,35 @@ def _buckets(leaves: Sequence[_Leaf], ks: Sequence[int], dtype, bucket_bytes: in
     return out
 
 
+def _leaves(signature, groups) -> tuple[_Leaf, ...]:
+    """The reference's leaves, in its flatten order, from the port's
+    ``signature`` ((name, shape, dtype) a leaf) and ``groups``."""
+    by_name = {name: (tuple(shape), dtype) for name, shape, dtype in signature}
+    if groups is None:
+        groups = convert.leaf_groups(by_name)
+    if sorted(n for _, names in groups for n in names) != sorted(by_name):
+        raise ValueError("grad_sync: the groups do not cover the gradients' names")
+    out = []
+    for path, names in groups:
+        shape, dtype = by_name[names[0]]
+        if any(by_name[n] != (shape, dtype) for n in names):
+            raise ValueError(f"grad_sync: the leaves stacked into {path} differ in "
+                             "shape or dtype")
+        stacked = convert.is_stacked(path)
+        if stacked:
+            shape = (len(names),) + shape
+        elif len(names) != 1:
+            raise ValueError(f"grad_sync: {path} is no stacked leaf but holds {names}")
+        out.append(_Leaf(tuple(names), path, math.prod(shape), shape, dtype, stacked))
+    return tuple(out)
+
+
 @functools.lru_cache(maxsize=32)
 def _schedule(signature: tuple[tuple[str, tuple[int, ...], torch.dtype], ...],
-              cfg: GradSyncConfig) -> _Schedule:
-    """The leaves of ``signature`` ((name, shape, dtype) a leaf) in the
-    reference's flatten order, and the exchanges that sync them.
+              cfg: GradSyncConfig, groups=None) -> _Schedule:
+    """The reference's leaves (``groups`` of the names of ``signature``,
+    (name, shape, dtype) a leaf) in its flatten order, and the exchanges
+    that sync them.
 
     ``fuse=True``: each precision group partitioned into ``"fused"``
     buckets. ``fuse=False``: one ``"per_leaf"`` strategy exchange for each
@@ -197,10 +235,7 @@ def _schedule(signature: tuple[tuple[str, tuple[int, ...], torch.dtype], ...],
     each dtype in shared ``"grouped"`` buckets, one all-reduce a bucket.
     """
     bucket_bytes = _require_resolved(cfg.bucket_bytes)
-    by_name = {name: (tuple(shape), dtype) for name, shape, dtype in signature}
-    leaves = tuple(
-        _Leaf(name, convert.jax_path(name), math.prod(by_name[name][0]), *by_name[name])
-        for name in convert.jax_order(by_name))
+    leaves = _leaves(signature, groups)
     if cfg.fuse:
         return _Schedule(leaves, tuple(
             ex for group, ks, dtype in _precision_groups(leaves, cfg)
@@ -227,7 +262,7 @@ def _signature(grads: dict[str, torch.Tensor]):
 
 
 def bucket_layout(grads: dict[str, torch.Tensor],
-                  cfg: GradSyncConfig = GradSyncConfig()) -> list[dict]:
+                  cfg: GradSyncConfig = GradSyncConfig(), groups=None) -> list[dict]:
     """The exchange schedule ``sync_tree`` will issue, as metadata: the
     reference's ``bucket_layout``, dict for dict.
 
@@ -236,9 +271,9 @@ def bucket_layout(grads: dict[str, torch.Tensor],
     ``mode``: ``"fused"`` buckets for ``fuse=True``; for ``fuse=False`` one
     ``"per_leaf"`` entry per large leaf plus ``"grouped"`` entries for the
     shared small-leaf buckets. Reads shapes and dtypes only (meta tensors
-    do).
+    do). ``groups``: the reference's stacked leaves (module docstring).
     """
-    sched = _schedule(_signature(grads), cfg)
+    sched = _schedule(_signature(grads), cfg, groups)
     return [{"group": ex.group, "dtype": _dtype_name(ex.dtype),
              "nbytes": sum(ex.sizes) * ex.dtype.itemsize, "num_leaves": len(ex.leaves),
              "paths": [sched.leaves[k].path for k in ex.leaves], "mode": ex.mode}
@@ -246,7 +281,7 @@ def bucket_layout(grads: dict[str, torch.Tensor],
 
 
 def record_bucket_metrics(grads_like: dict[str, torch.Tensor], cfg: GradSyncConfig,
-                          registry) -> list[dict]:
+                          registry, groups=None) -> list[dict]:
     """Publish the exchange schedule as gauges on a metrics registry
     (``repro_torch.obs.metrics``), under the reference's names.
 
@@ -279,7 +314,7 @@ def record_bucket_metrics(grads_like: dict[str, torch.Tensor], cfg: GradSyncConf
     remove_prefix = getattr(registry, "remove_prefix", None)
     if remove_prefix is not None:
         remove_prefix("grad_sync/")
-    layout = bucket_layout(grads_like, cfg)
+    layout = bucket_layout(grads_like, cfg, groups)
     registry.gauge("grad_sync/num_exchanges").set(len(layout))
     registry.gauge("grad_sync/total_nbytes").set(sum(b["nbytes"] for b in layout))
     if cfg.fuse:
@@ -304,20 +339,24 @@ def _scale_in(dtype: torch.dtype, world: int) -> float:
 
 
 def sync_tree(grads: dict[str, torch.Tensor], grid: TorusGrid,
-              cfg: GradSyncConfig = GradSyncConfig()) -> dict[str, torch.Tensor]:
+              cfg: GradSyncConfig = GradSyncConfig(), groups=None) -> dict[str, torch.Tensor]:
     """The mean of the gradients over the grid's ranks; every rank calls it
-    with the same names and shapes. Returns a new dict in the input's key
+    with the same names and shapes. ``groups``: the reference's stacked
+    leaves (module docstring). Returns a new dict in the input's key
     order, each leaf in its own shape and dtype."""
-    sched = _schedule(_signature(grads), cfg)
+    sched = _schedule(_signature(grads), cfg, groups)
     mult = grid.size
     exchanges = []
     for ex in sched.exchanges:
         if ex.mode == "per_leaf":
-            # a copy: the input leaf may be in the comm dtype already
-            buf = grads[sched.leaves[ex.leaves[0]].name].to(ex.dtype, copy=True)
+            leaf = sched.leaves[ex.leaves[0]]
+            if leaf.stacked:   # the reference's stacked leaf: a new tensor
+                buf = torch.stack([grads[n] for n in leaf.names]).to(ex.dtype)
+            else:              # a copy: the input leaf may be in the comm dtype
+                buf = grads[leaf.names[0]].to(ex.dtype, copy=True)
         else:
-            buf = torch.cat([grads[sched.leaves[k].name].reshape(-1)
-                             for k in ex.leaves]).to(ex.dtype)
+            buf = torch.cat([grads[n].reshape(-1) for k in ex.leaves
+                             for n in sched.leaves[k].names]).to(ex.dtype)
         # in the comm dtype, times the scale rounded to it: keeps the
         # half-precision partial sums in range. A scale of 1 is left out.
         scale = _scale_in(ex.dtype, grid.size)
@@ -330,7 +369,8 @@ def sync_tree(grads: dict[str, torch.Tensor], grid: TorusGrid,
     for ex, red in zip(sched.exchanges, collectives.run(exchanges)):
         if ex.mode == "per_leaf":
             leaf = sched.leaves[ex.leaves[0]]
-            out[leaf.name] = red[:leaf.shape[0]].to(leaf.dtype)
+            red = red[:leaf.shape[0]].to(leaf.dtype)
+            out.update(zip(leaf.names, red.unbind(0) if leaf.stacked else (red,)))
             continue
         red = red.reshape(-1)[:sum(ex.sizes)]
         if ex.out_dtype is not None:   # one cast a bucket, not one a leaf
@@ -338,7 +378,9 @@ def sync_tree(grads: dict[str, torch.Tensor], grid: TorusGrid,
         for k, part in zip(ex.leaves, torch.split(red, ex.sizes)):
             leaf = sched.leaves[k]
             part = part.view(leaf.shape)
-            out[leaf.name] = part if ex.out_dtype is not None else part.to(leaf.dtype)
+            if ex.out_dtype is None:
+                part = part.to(leaf.dtype)
+            out.update(zip(leaf.names, part.unbind(0) if leaf.stacked else (part,)))
     return {name: out[name] for name in grads}
 
 

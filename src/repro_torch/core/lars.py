@@ -19,6 +19,14 @@ updates every leaf, LARS and skip alike, through one call of
 leaf is a LARS leaf with trust 1 and no weight decay), the plain version on
 the host. The JAX package's ``use_kernel`` switch has no counterpart because
 the device picks the path.
+
+**Groups.** The reference takes one trust ratio a leaf of its tree, and a
+transformer's tree stacks each repeated layer's leaf over the layers
+(``blocks/0/mixer/q/kernel``: all 28 of Qwen3-1.7B's q kernels). The port
+keeps a leaf a layer, so ``update`` takes the reference's leaves as
+``groups`` (``convert.leaf_groups``: a JAX path and the port names stacked
+into it) and computes each trust ratio from the norms over a whole group.
+Without ``groups`` every leaf is its own group, which is the ResNet's tree.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import functools
 
 import torch
 
+from repro_torch import convert
 from repro_torch.kernels import ops as kops
 
 
@@ -56,6 +65,18 @@ def _lars_flags(names: tuple[str, ...], cfg: LARSConfig) -> list[bool]:
     return [not is_skip(n, cfg) for n in names]
 
 
+@functools.lru_cache(maxsize=8)
+def _grouped_order(names: tuple[str, ...], groups) -> tuple[tuple[str, ...], list[int]]:
+    """The names group after group, and each group's count of leaves;
+    ``groups`` None: one a leaf (``convert.leaf_groups`` without a config)."""
+    if groups is None:
+        groups = convert.leaf_groups(names)
+    order = tuple(n for _, members in groups for n in members)
+    if sorted(order) != sorted(names):
+        raise ValueError("lars.update: the groups do not cover the params' names")
+    return order, [len(members) for _, members in groups]
+
+
 def init(params: dict[str, torch.Tensor]) -> dict:
     """Momentum buffers, fp32 (master precision) like the params."""
     return {"momentum": {k: torch.zeros(p.shape, dtype=torch.float32,
@@ -66,21 +87,26 @@ def init(params: dict[str, torch.Tensor]) -> dict:
 @torch.no_grad()
 def update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
            opt_state: dict, *, lr: float, momentum: float,
-           cfg: LARSConfig = LARSConfig()):
+           cfg: LARSConfig = LARSConfig(), groups=None):
     """One LARS step; all math in fp32 (paper §3.2).
 
-    Returns new ``(params, opt_state)`` dicts; the inputs are not modified.
+    ``groups``: the reference's leaves (``convert.leaf_groups``), each
+    taking one trust ratio over its port leaves; None: one a leaf.
+    Returns new ``(params, opt_state)`` dicts in ``params``' order; the
+    inputs are not modified.
     """
     names = tuple(params)
+    order, sizes = _grouped_order(names, groups)
     moms = opt_state["momentum"]
     new_p, new_m = kops.lars_update_leaves(
         # autograd.grad may hand back a conv kernel's gradient in another
         # memory layout than the kernel; the kernels pair elements by offset
-        [params[n] for n in names], [grads[n].contiguous() for n in names],
-        [moms[n] for n in names], _lars_flags(names, cfg),
+        [params[n] for n in order], [grads[n].contiguous() for n in order],
+        [moms[n] for n in order], _lars_flags(order, cfg),
         lr=lr, mom=momentum, eta=cfg.eta, weight_decay=cfg.weight_decay,
-        eps=cfg.eps, nesterov=cfg.nesterov)
-    return dict(zip(names, new_p)), {"momentum": dict(zip(names, new_m))}
+        eps=cfg.eps, nesterov=cfg.nesterov, groups=sizes)
+    by_p, by_m = dict(zip(order, new_p)), dict(zip(order, new_m))
+    return {n: by_p[n] for n in names}, {"momentum": {n: by_m[n] for n in names}}
 
 
 # -- plain momentum-SGD baseline (the no-LARS ablation) ----------------------

@@ -97,6 +97,10 @@
 //   memory.
 // - The output goes through shared memory (Q_hi's space) so the stores to
 //   device memory are 16-byte and coalesced.
+// - When the caller passes an lse buffer, the lane that holds a row's sum
+//   also writes the row's logsumexp, m + log l (natural log, fp32), which
+//   the backward (csrc/flash_attn_bwd.cu) recomputes P from; a null buffer
+//   skips the store.
 
 #include "flash_common.cuh"
 
@@ -259,7 +263,8 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     flash_f32_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
-                     float* __restrict__ o, int H, int Hkv, int S, int Skv,
+                     float* __restrict__ o, float* __restrict__ lse, int H,
+                    int Hkv, int S, int Skv,
                      float scale, float cap_in, float softcap, int causal,
                      int window) {
   using C = Cfg<D>;
@@ -547,6 +552,13 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
   }
+  // the row's logsumexp of the scaled, softcapped logits (natural log),
+  // for the backward; one lane of the quad writes it, none without lse
+  if (lse != nullptr && lane % 4 == 0) {
+    float* lp = lse + ((long long)b * H + h) * S;
+    if (row_lo < S) lp[row_lo] = l_lo > 0.f ? m_lo + logf(l_lo) : -INFINITY;
+    if (row_hi < S) lp[row_hi] = l_hi > 0.f ? m_hi + logf(l_hi) : -INFINITY;
+  }
   const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;
   const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
   // each warpgroup writes its own 64 rows of Q_hi's tile, which only its own
@@ -574,7 +586,7 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 }
 
 template <int D, bool kSoftcap>
-int launch_cap(const void* q, const void* k, const void* v, void* o, int B,
+int launch_cap(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                int H, int Hkv, int S, int Skv, float scale, int causal,
                int window, float softcap, cudaStream_t st) {
   using C = Cfg<D>;
@@ -596,19 +608,19 @@ int launch_cap(const void* q, const void* k, const void* v, void* o, int B,
   const float cap_in = kSoftcap ? 1.f / softcap : 0.f;
   const dim3 grid(B * H, (S + C::BM - 1) / C::BM);
   flash_f32_kernel<D, kSoftcap><<<grid, C::kThreads, C::kSmem, st>>>(
-      tq, tk, tv, (float*)o, H, Hkv, S, Skv, scale, cap_in, softcap, causal,
+      tq, tk, tv, (float*)o, (float*)lse, H, Hkv, S, Skv, scale, cap_in, softcap, causal,
       window);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
            int Hkv, int S, int Skv, float scale, int causal, int window,
            float softcap, cudaStream_t st) {
   return softcap > 0.f
-             ? launch_cap<D, true>(q, k, v, o, B, H, Hkv, S, Skv, scale, causal,
+             ? launch_cap<D, true>(q, k, v, o, lse, B, H, Hkv, S, Skv, scale, causal,
                                    window, softcap, st)
-             : launch_cap<D, false>(q, k, v, o, B, H, Hkv, S, Skv, scale,
+             : launch_cap<D, false>(q, k, v, o, lse, B, H, Hkv, S, Skv, scale,
                                     causal, window, softcap, st);
 }
 
@@ -616,9 +628,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 
 // q, o: (B, S, H, D); k, v: (B, Skv, Hkv, D); all fp32, contiguous, 16-byte
 // aligned. H % Hkv == 0, D in {32, 64, 128, 256}. window < 0: no window;
-// softcap <= 0: no softcap.
+// softcap <= 0: no softcap. lse: null, or (B, H, S) fp32 for each row's
+// logsumexp (the backward's input; serving passes null and pays nothing).
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* o, int batch, int heads,
+                              void* o, void* lse, int batch, int heads,
                               int kv_heads, int seq_q, int seq_kv,
                               int head_dim, float scale, int causal,
                               int window, float softcap, void* stream) {
@@ -629,13 +642,13 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   switch (head_dim) {
     case 32:
-      return launch<32>(q, k, v, o, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
+      return launch<32>(q, k, v, o, lse, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
     case 64:
-      return launch<64>(q, k, v, o, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
+      return launch<64>(q, k, v, o, lse, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
     case 128:
-      return launch<128>(q, k, v, o, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
+      return launch<128>(q, k, v, o, lse, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
     case 256:
-      return launch<256>(q, k, v, o, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
+      return launch<256>(q, k, v, o, lse, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

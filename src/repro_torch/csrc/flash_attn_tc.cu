@@ -49,6 +49,10 @@
 // - GQA reads kv head h / (H / Hkv); nothing is repeated in memory.
 // - The output goes through shared memory (Q's space) so the stores to
 //   device memory are 16-byte and coalesced.
+// - When the caller passes an lse buffer, the lane that holds a row's sum
+//   also writes the row's logsumexp, m + log l (natural log, fp32), which
+//   the backward (csrc/flash_attn_bwd.cu) recomputes P from; a null buffer
+//   skips the store.
 
 #include <cuda_bf16.h>
 
@@ -232,7 +236,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
-                    bf16* __restrict__ o, int H, int Hkv, int S, int Skv,
+                    bf16* __restrict__ o, float* __restrict__ lse, int H,
+                    int Hkv, int S, int Skv,
                     float scale_log2, float cap_in, float cap_out, int causal,
                     int window) {
   using C = Cfg<D>;
@@ -410,6 +415,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
   }
+  // the row's logsumexp of the scaled, softcapped logits (natural log),
+  // for the backward; one lane of the quad writes it, none without lse
+  if (lse != nullptr && lane % 4 == 0) {
+    float* lp = lse + ((long long)b * H + h) * S;
+    if (row_lo < S) lp[row_lo] = l_lo > 0.f ? (m_lo + log2f(l_lo)) * kLn2 : -INFINITY;
+    if (row_hi < S) lp[row_hi] = l_hi > 0.f ? (m_hi + log2f(l_hi)) * kLn2 : -INFINITY;
+  }
   const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;
   const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
   // each warpgroup writes its own 64 rows of Q's tile, which only its own
@@ -446,7 +458,7 @@ bool make_map_bf16(CUtensorMap* map, const void* ptr, int B, int rows, int heads
 }
 
 template <int D, bool kSoftcap>
-int launch_cap(const void* q, const void* k, const void* v, void* o, int B,
+int launch_cap(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                int H, int Hkv, int S, int Skv, float scale, int causal,
                int window, float softcap, cudaStream_t st) {
   constexpr size_t smem = Cfg<D>::kSmem;
@@ -467,19 +479,19 @@ int launch_cap(const void* q, const void* k, const void* v, void* o, int B,
   const float cap_out = kSoftcap ? softcap * kLog2e : 0.f;
   const dim3 grid(B * H, (S + kBM - 1) / kBM);
   flash_tc_kernel<D, kSoftcap><<<grid, kThreads, smem, st>>>(
-      tq, tk, tv, (bf16*)o, H, Hkv, S, Skv, scale * kLog2e, cap_in, cap_out,
+      tq, tk, tv, (bf16*)o, (float*)lse, H, Hkv, S, Skv, scale * kLog2e, cap_in, cap_out,
       causal, window);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
            int Hkv, int S, int Skv, float scale, int causal, int window,
            float softcap, cudaStream_t st) {
   return softcap > 0.f
-             ? launch_cap<D, true>(q, k, v, o, B, H, Hkv, S, Skv, scale, causal,
+             ? launch_cap<D, true>(q, k, v, o, lse, B, H, Hkv, S, Skv, scale, causal,
                                    window, softcap, st)
-             : launch_cap<D, false>(q, k, v, o, B, H, Hkv, S, Skv, scale,
+             : launch_cap<D, false>(q, k, v, o, lse, B, H, Hkv, S, Skv, scale,
                                     causal, window, softcap, st);
 }
 
@@ -487,9 +499,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 
 // q, o: (B, S, H, D); k, v: (B, Skv, Hkv, D); bf16, contiguous, 16-byte
 // aligned. H % Hkv == 0, D in {32, 64, 128, 256}. window < 0: no window;
-// softcap <= 0: no softcap.
+// softcap <= 0: no softcap. lse: null, or (B, H, S) fp32 for each row's
+// logsumexp (the backward's input; serving passes null and pays nothing).
 extern "C" int flash_attn_tc_fwd(const void* q, const void* k, const void* v,
-                                 void* o, int batch, int heads, int kv_heads,
+                                 void* o, void* lse, int batch, int heads, int kv_heads,
                                  int seq_q, int seq_kv, int head_dim,
                                  float scale, int causal, int window,
                                  float softcap, void* stream) {
@@ -500,13 +513,13 @@ extern "C" int flash_attn_tc_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   switch (head_dim) {
     case 32:
-      return launch<32>(q, k, v, o, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
+      return launch<32>(q, k, v, o, lse, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
     case 64:
-      return launch<64>(q, k, v, o, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
+      return launch<64>(q, k, v, o, lse, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
     case 128:
-      return launch<128>(q, k, v, o, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
+      return launch<128>(q, k, v, o, lse, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
     case 256:
-      return launch<256>(q, k, v, o, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
+      return launch<256>(q, k, v, o, lse, batch, heads, kv_heads, seq_q, seq_kv, scale, causal, window, softcap, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -18,18 +18,31 @@
 // second time (8 bytes an element more): the price of computing each
 // leaf's norms before any block of it updates, without float atomics.
 //
+// Groups. ||p|| and ||g|| are taken over a LARS group: one leaf, or the
+// consecutive leaves that the reference holds as one stacked array (a
+// transformer's repeated layers, convert.leaf_groups), whose norms are the
+// norms over all of the group's leaves. A group's leaves may span two
+// tables: the wrapper issues every norms launch before the first apply.
+//
 // Design: a table of the leaves (pointers, sizes, the LARS-or-skip flag,
-// the offset into the flat outputs, the first block of each leaf) goes by
-// value in the kernel parameters (__grid_constant__, up to 32,764 bytes on
-// CUDA 12.1+), so no host-to-device copy precedes a launch. Block b owns a
-// fixed chunk of one leaf, found by a binary search of the table.
+// the offset into the flat outputs, the first block of each leaf, its
+// group and the group's blocks) goes by value in the kernel parameters
+// (__grid_constant__, up to 32,764 bytes on CUDA 12.1+), so no
+// host-to-device copy precedes a launch. Block b owns a fixed chunk of one
+// leaf, found by a binary search of the table.
 // - lars_norms_kernel: each block of a LARS leaf sums p^2 and g^2 over its
-//   chunk and writes the two partial sums to slot b of a scratch buffer.
-// - lars_apply_kernel: each block of a LARS leaf first sums its leaf's
-//   partials (warp 0, a fixed order), computes the trust ratio, then updates
-//   its chunk; a skip leaf's block goes straight to the update.
-// Every sum runs in a fixed order and nothing uses atomics, so a step's
-// result repeats bit for bit. Loads and stores are 16 bytes a thread where
+//   chunk and writes the two partial sums to its slot of a scratch buffer,
+//   then counts itself in on its group (an integer atomic). The group's
+//   last block to arrive sums all of the group's partials, in slot order,
+//   and writes the group's two sums: which block does it varies, the order
+//   of the sum does not, and the sum is taken once a group (a block that
+//   summed its group itself would read a 28-layer group's ~10^4 partials,
+//   ~10^4 times over).
+// - lars_apply_kernel: each block of a LARS leaf reads its group's sums,
+//   computes the trust ratio, then updates its chunk; a skip leaf's block
+//   goes straight to the update.
+// Every float sum runs in a fixed order and no float atomic is used, so a
+// step's result repeats bit for bit. Loads and stores are 16 bytes a thread where
 // a leaf's pointers allow it. The kernels allocate nothing and launch on the
 // caller's stream; the wrapper (kernels/lars_update.py) owns the buffers.
 
@@ -49,6 +62,10 @@ struct LarsTable {
   int n[kMaxLeaves];              // its elements
   int chunk0[kMaxLeaves + 1];     // its first block; chunk0[n_leaves] = blocks
   int lars[kMaxLeaves];           // 1: trust ratio and weight decay; 0: skip
+  int grp[kMaxLeaves];            // its LARS group, counted over all tables
+  int gb0[kMaxLeaves];            // the group's first block, over all tables
+  int gb1[kMaxLeaves];            // one past the group's last block
+  int base;                       // this table's first block, over all tables
   int n_leaves;
   int chunk;                      // elements a block, a multiple of 4
 };
@@ -82,8 +99,8 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-    lars_norms_kernel(const __grid_constant__ LarsTable t,
-                      float* __restrict__ partial) {
+    lars_norms_kernel(const __grid_constant__ LarsTable t, float* partial,
+                      int* __restrict__ count, float* __restrict__ sums) {
   __shared__ float red[kThreads / 32];
   const int i = find_leaf(t, blockIdx.x);
   if (!t.lars[i]) return;   // skip leaves need no norms
@@ -109,9 +126,30 @@ __global__ void __launch_bounds__(kThreads)
   }
   sp = block_sum(sp, red);
   sg = block_sum(sg, red);
+  __shared__ int last;
   if (threadIdx.x == 0) {
-    partial[2 * blockIdx.x] = sp;
-    partial[2 * blockIdx.x + 1] = sg;
+    const int slot = t.base + blockIdx.x;
+    partial[2 * slot] = sp;
+    partial[2 * slot + 1] = sg;
+    __threadfence();   // the partials are seen before the count
+    last = atomicAdd(&count[t.grp[i]], 1) == t.gb1[i] - t.gb0[i] - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // every partial of the group is in: sum them in slot order (L2 reads, as
+  // other blocks wrote them)
+  sp = 0.f;
+  sg = 0.f;
+  for (int c = t.gb0[i] + threadIdx.x; c < t.gb1[i]; c += kThreads) {
+    sp += __ldcg(&partial[2 * c]);
+    sg += __ldcg(&partial[2 * c + 1]);
+  }
+  sp = block_sum(sp, red);
+  sg = block_sum(sg, red);
+  if (threadIdx.x == 0) {
+    sums[2 * t.grp[i]] = sp;
+    sums[2 * t.grp[i] + 1] = sg;
   }
 }
 
@@ -124,32 +162,14 @@ __device__ __forceinline__ void step(float p, float g, float v, float tl,
 
 __global__ void __launch_bounds__(kThreads)
     lars_apply_kernel(const __grid_constant__ LarsTable t,
-                      const float* __restrict__ partial,
+                      const float* __restrict__ sums,
                       float* __restrict__ p_out, float* __restrict__ v_out,
                       float lr, float mom, float eta, float wd, float eps,
                       int nesterov) {
-  __shared__ float norms[2];
   const int i = find_leaf(t, blockIdx.x);
   float tl = lr, wdl = 0.f;   // skip leaf: trust 1, no weight decay
   if (t.lars[i]) {
-    if (threadIdx.x < 32) {
-      float sp = 0.f, sg = 0.f;
-      for (int c = t.chunk0[i] + threadIdx.x; c < t.chunk0[i + 1]; c += 32) {
-        sp += partial[2 * c];
-        sg += partial[2 * c + 1];
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        sp += __shfl_xor_sync(0xffffffffu, sp, off);
-        sg += __shfl_xor_sync(0xffffffffu, sg, off);
-      }
-      if (threadIdx.x == 0) {
-        norms[0] = sqrtf(sp);
-        norms[1] = sqrtf(sg);
-      }
-    }
-    __syncthreads();
-    const float w = norms[0], gn = norms[1];
+    const float w = sqrtf(sums[2 * t.grp[i]]), gn = sqrtf(sums[2 * t.grp[i] + 1]);
     const float trust = (w > 0.f && gn > 0.f) ? eta * w / (gn + wd * w + eps) : 1.f;
     tl = trust * lr;
     wdl = wd;
@@ -183,8 +203,14 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 bool table_ok(const LarsTable& t, int blocks) {
-  return t.n_leaves > 0 && t.n_leaves <= kMaxLeaves && t.chunk > 0 &&
-         t.chunk % 4 == 0 && blocks == t.chunk0[t.n_leaves];
+  if (!(t.n_leaves > 0 && t.n_leaves <= kMaxLeaves && t.chunk > 0 &&
+        t.chunk % 4 == 0 && blocks == t.chunk0[t.n_leaves] && t.base >= 0))
+    return false;
+  for (int i = 0; i < t.n_leaves; ++i)   // the leaf's blocks lie in its group's
+    if (t.grp[i] < 0 || t.gb0[i] > t.base + t.chunk0[i] ||
+        t.gb1[i] < t.base + t.chunk0[i + 1])
+      return false;
+  return true;
 }
 
 }  // namespace
@@ -195,18 +221,22 @@ extern "C" int lars_table_check(long long bytes) {
 }
 
 // table: a host LarsTable, copied into the launch's parameters; partial:
-// 2 * blocks fp32 of scratch on the device.
-extern "C" int lars_norms_f32(const void* table, float* partial, int blocks,
-                              void* stream) {
+// 2 fp32 of scratch a block over all tables; count: an int a group, zero
+// before the first table's launch; sums: 2 fp32 a group, the group's sums
+// of p^2 and g^2 once its last block is in.
+extern "C" int lars_norms_f32(const void* table, float* partial, int* count,
+                              float* sums, int blocks, void* stream) {
   LarsTable t;
   memcpy(&t, table, sizeof t);
   if (!table_ok(t, blocks)) return (int)cudaErrorInvalidValue;
-  lars_norms_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(t, partial);
+  lars_norms_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(t, partial, count,
+                                                                    sums);
   return (int)cudaGetLastError();
 }
 
-// p_out, v_out: the flat outputs, each leaf at its table offset.
-extern "C" int lars_apply_f32(const void* table, const float* partial,
+// sums: as lars_norms_f32 left them, every norms launch done; p_out, v_out:
+// the flat outputs, each leaf at its table offset.
+extern "C" int lars_apply_f32(const void* table, const float* sums,
                               float* p_out, float* v_out, int blocks, float lr,
                               float mom, float eta, float wd, float eps,
                               int nesterov, void* stream) {
@@ -214,6 +244,6 @@ extern "C" int lars_apply_f32(const void* table, const float* partial,
   memcpy(&t, table, sizeof t);
   if (!table_ok(t, blocks)) return (int)cudaErrorInvalidValue;
   lars_apply_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      t, partial, p_out, v_out, lr, mom, eta, wd, eps, nesterov);
+      t, sums, p_out, v_out, lr, mom, eta, wd, eps, nesterov);
   return (int)cudaGetLastError();
 }

@@ -11,29 +11,35 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attn import (check_every_row_attends, flash_attention_cuda,
-                                            flash_attention_f32, flash_attention_tc)
+from repro_torch.kernels.flash_attn import (FlashAttention, check_every_row_attends,
+                                            flash_attention_bwd_bf16, flash_attention_bwd_f32,
+                                            flash_attention_cuda, flash_attention_f32,
+                                            flash_attention_tc)
 from repro_torch.kernels.lars_update import lars_update_cuda
 from repro_torch.kernels.ls_xent import LSXent, ls_xent_bwd_cuda, ls_xent_fwd_cuda
 
 _WRAPPERS = {"lars_update": lars_update_cuda, "ls_xent_fwd": ls_xent_fwd_cuda,
              "ls_xent_bwd": ls_xent_bwd_cuda, "flash_attn": flash_attention_tc,
-             "flash_attn_f32": flash_attention_f32}
+             "flash_attn_f32": flash_attention_f32, "flash_attn_bwd": flash_attention_bwd_bf16,
+             "flash_attn_bwd_f32": flash_attention_bwd_f32}
 
 
 def lars_update_leaves(ps, gs, vs, lars, *, lr, mom, eta, weight_decay, eps,
-                       nesterov: bool = False):
+                       nesterov: bool = False, groups=None):
     """One LARS step over lists of fp32 leaves; returns ``(ps', vs')``.
 
     ``lars[i]`` False makes leaf i a skip leaf: plain momentum SGD (trust 1,
-    no weight decay). On the card: two launches for all leaves.
+    no weight decay). ``groups`` counts the consecutive leaves that share a
+    trust ratio (the reference's stacked leaves); None: one a leaf. On the
+    card: two launches for all leaves (more past ``MAX_LEAVES`` leaves).
     """
     if not ps or not ps[0].is_cuda:
         return ref.lars_update_leaves_ref(ps, gs, vs, lars, lr=lr, mom=mom, eta=eta,
                                           weight_decay=weight_decay, eps=eps,
-                                          nesterov=nesterov)
+                                          nesterov=nesterov, groups=groups)
     return lars_update_cuda(ps, gs, vs, lars, lr=lr, mom=mom, eta=eta,
-                            weight_decay=weight_decay, eps=eps, nesterov=nesterov)
+                            weight_decay=weight_decay, eps=eps, nesterov=nesterov,
+                            groups=groups)
 
 
 def lars_update(p, g, v, *, lr, mom, eta, weight_decay, eps,
@@ -62,20 +68,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     softcap: float | None = None,
                     scale: float | None = None) -> torch.Tensor:
-    """Attention forward with an online softmax (prefill self-attention).
+    """Attention with an online softmax (training forward and prefill),
+    differentiable in q, k and v.
 
     q: (B, S, H, D); k/v: (B, Skv, Hkv, D), H % Hkv == 0 (GQA). Masks,
     softcap and scale as ``repro/kernels/flash_attn.py::flash_attention``.
     Raises on both devices when a query row has no key to attend
-    (``check_every_row_attends``), and on the card when autograd tracks an
-    input (the kernel has no backward).
+    (``check_every_row_attends``). On the card, under autograd, the forward
+    kernel also writes each row's logsumexp and the backward kernel
+    (``csrc/flash_attn_bwd.cu``) gives the gradients; on the host the plain
+    version is differentiated by autograd.
     """
     if not q.is_cuda:
         check_every_row_attends(q.shape[1], k.shape[1], window)
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap, scale=scale)
-    return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                causal=causal, window=window, softcap=softcap,
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap,
                                 scale=scale)
 
 

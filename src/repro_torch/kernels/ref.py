@@ -10,17 +10,32 @@ from __future__ import annotations
 import torch
 
 
-def lars_trust(p: torch.Tensor, g: torch.Tensor, *, eta: float,
-               weight_decay: float, eps: float) -> torch.Tensor:
+def lars_trust(p, g, *, eta: float, weight_decay: float, eps: float) -> torch.Tensor:
     """eta*||p|| / (||g|| + wd*||p|| + eps), or 1 when either norm is 0.
 
-    A 0-d fp32 tensor on ``p``'s device: the value never visits the host.
+    ``p`` and ``g`` are tensors, or lists of the tensors of one LARS group,
+    whose norms are the norms over all of them (the norm of the leaves'
+    norms; one leaf's is its own norm, bit for bit). A 0-d fp32 tensor on
+    the leaves' device: the value never visits the host.
     """
-    w_norm = torch.linalg.vector_norm(p.float())
-    g_norm = torch.linalg.vector_norm(g.float())
+    ps, gs = (p, g) if isinstance(p, (list, tuple)) else ([p], [g])
+    w_norm = _group_norm(ps)
+    g_norm = _group_norm(gs)
     trust = eta * w_norm / (g_norm + weight_decay * w_norm + eps)
     return torch.where((w_norm > 0) & (g_norm > 0), trust,
                        torch.ones_like(trust))
+
+
+def _group_norm(ts) -> torch.Tensor:
+    norms = [torch.linalg.vector_norm(t.float()) for t in ts]
+    return norms[0] if len(norms) == 1 else torch.linalg.vector_norm(torch.stack(norms))
+
+
+def _lars_step(p, g, v, trust, *, lr, mom, weight_decay, nesterov):
+    p, g, v = p.float(), g.float(), v.float()
+    v_new = mom * v + (trust * lr) * (g + weight_decay * p)
+    step = mom * v_new + (v_new - mom * v) if nesterov else v_new
+    return p - step, v_new
 
 
 def lars_update_ref(p, g, v, *, lr, mom, eta, weight_decay, eps,
@@ -33,10 +48,8 @@ def lars_update_ref(p, g, v, *, lr, mom, eta, weight_decay, eps,
     p'    = p - v'   (nesterov: p - (mom*v' + v' - mom*v))
     """
     trust = lars_trust(p, g, eta=eta, weight_decay=weight_decay, eps=eps)
-    p, g, v = p.float(), g.float(), v.float()
-    v_new = mom * v + (trust * lr) * (g + weight_decay * p)
-    step = mom * v_new + (v_new - mom * v) if nesterov else v_new
-    return p - step, v_new
+    return _lars_step(p, g, v, trust, lr=lr, mom=mom, weight_decay=weight_decay,
+                      nesterov=nesterov)
 
 
 def momentum_sgd_ref(p, g, v, *, lr, mom, nesterov: bool = False):
@@ -49,19 +62,27 @@ def momentum_sgd_ref(p, g, v, *, lr, mom, nesterov: bool = False):
 
 
 def lars_update_leaves_ref(ps, gs, vs, lars, *, lr, mom, eta, weight_decay, eps,
-                           nesterov: bool = False):
+                           nesterov: bool = False, groups=None):
     """The multi-tensor kernels' function: ``lars_update_ref`` on each leaf
-    with ``lars[i]`` true, ``momentum_sgd_ref`` on the others."""
-    out_p, out_v = [], []
-    for p, g, v, is_lars in zip(ps, gs, vs, lars, strict=True):
-        if is_lars:
-            p_new, v_new = lars_update_ref(p, g, v, lr=lr, mom=mom, eta=eta,
-                                           weight_decay=weight_decay, eps=eps,
-                                           nesterov=nesterov)
-        else:
-            p_new, v_new = momentum_sgd_ref(p, g, v, lr=lr, mom=mom, nesterov=nesterov)
-        out_p.append(p_new)
-        out_v.append(v_new)
+    with ``lars[i]`` true, ``momentum_sgd_ref`` on the others. ``groups``
+    counts the consecutive leaves that share one trust ratio, from the
+    norms over all of them (None: one a leaf)."""
+    if len({len(ps), len(gs), len(vs), len(lars)}) != 1:
+        raise ValueError("lars_update_leaves_ref: ps, gs, vs and lars differ in length")
+    out_p, out_v, leaf = [], [], 0
+    for size in groups if groups is not None else [1] * len(ps):
+        sl = slice(leaf, leaf + size)
+        trust = (lars_trust(ps[sl], gs[sl], eta=eta, weight_decay=weight_decay, eps=eps)
+                 if lars[leaf] else None)
+        for p, g, v in zip(ps[sl], gs[sl], vs[sl]):
+            if trust is None:
+                p_new, v_new = momentum_sgd_ref(p, g, v, lr=lr, mom=mom, nesterov=nesterov)
+            else:
+                p_new, v_new = _lars_step(p, g, v, trust, lr=lr, mom=mom,
+                                          weight_decay=weight_decay, nesterov=nesterov)
+            out_p.append(p_new)
+            out_v.append(v_new)
+        leaf += size
     return out_p, out_v
 
 
@@ -130,28 +151,20 @@ def ls_xent_bwd_tol(want: torch.Tensor, gout: torch.Tensor,
 NEG_INF = -1e30   # the masked logit of repro/kernels/{ref,flash_attn}.py
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: int | None = None,
-                        softcap: float | None = None,
-                        scale: float | None = None) -> torch.Tensor:
-    """Plain masked softmax attention (``repro/kernels/ref.py::flash_attention_ref``).
-
-    q: (B, S, H, D); k/v: (B, Skv, Hkv, D), GQA by repeating each kv head
-    for its H // Hkv query heads. fp32 math (fp64 for fp64 inputs: the
-    exact answer the fp32 kernel is held to), output in q's dtype. Query i
-    attends key j iff j < Skv, j <= i (causal) and j > i - window (window);
-    positions count from 0 in both, as in the kernel.
-    """
+def _flash_logits(q, k, *, causal, window, softcap, scale):
+    """(masked logits t (B, H, S, Skv), softcap's tanh or None, mask, math
+    dtype) of the plain versions: fp32 math (fp64 for fp64 inputs), GQA by
+    repeating each kv head for its H // Hkv query heads."""
     B, S, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    group = H // Hkv
     scale = D ** -0.5 if scale is None else scale
     math = torch.float64 if q.dtype == torch.float64 else torch.float32
-    k = k.repeat_interleave(group, dim=2).to(math)
-    v = v.repeat_interleave(group, dim=2).to(math)
+    k = k.repeat_interleave(H // Hkv, dim=2).to(math)
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(math) * scale, k)
+    th = None
     if softcap:
-        s = softcap * torch.tanh(s / softcap)
+        th = torch.tanh(s / softcap)
+        s = softcap * th
     qi = torch.arange(S, device=q.device)[:, None]
     kj = torch.arange(Skv, device=q.device)[None, :]
     mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
@@ -159,9 +172,67 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= kj <= qi
     if window is not None:
         mask &= kj > qi - window
-    s = torch.where(mask, s, NEG_INF)
+    return torch.where(mask, s, NEG_INF), th, mask, math
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        softcap: float | None = None,
+                        scale: float | None = None, return_lse: bool = False):
+    """Plain masked softmax attention (``repro/kernels/ref.py::flash_attention_ref``).
+
+    q: (B, S, H, D); k/v: (B, Skv, Hkv, D), GQA by repeating each kv head
+    for its H // Hkv query heads. fp32 math (fp64 for fp64 inputs: the
+    exact answer the fp32 kernel is held to), output in q's dtype. Query i
+    attends key j iff j < Skv, j <= i (causal) and j > i - window (window);
+    positions count from 0 in both, as in the kernel. ``return_lse``: also
+    each row's logsumexp of the masked logits, (B, H, S) in the math dtype,
+    what the forward kernels write for the backward.
+    """
+    s, _, _, math = _flash_logits(q, k, causal=causal, window=window, softcap=softcap,
+                                  scale=scale)
     w = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", w, v).to(q.dtype)
+    v = v.repeat_interleave(q.shape[2] // k.shape[2], dim=2).to(math)
+    o = torch.einsum("bhqk,bkhd->bqhd", w, v).to(q.dtype)
+    return (o, torch.logsumexp(s, dim=-1)) if return_lse else o
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, dout, *, causal: bool = True,
+                            window: int | None = None, softcap: float | None = None,
+                            scale: float | None = None):
+    """The backward kernels' function (``csrc/flash_attn_bwd.cu``): (dq, dk,
+    dv) of ``flash_attention_ref`` from q, k, v, its output ``o``, the
+    output's gradient ``dout`` and the rows' logsumexp ``lse`` (B, H, S),
+    by FA-2's formulas, not autograd:
+
+        P  = exp(t - lse) on the kept pairs,   D = rowsum(dout * o)
+        dS = P * (dout . v^T - D) * (1 - tanh^2(s / softcap))
+        dq = scale dS . k,  dk = scale dS^T . q,  dv = P^T . dout
+
+    GQA sums each kv head's gradient over its query heads. fp32 math (fp64
+    for fp64 inputs, the exact answer), outputs in the inputs' dtype.
+    """
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    scale = D ** -0.5 if scale is None else scale
+    t, th, mask, math = _flash_logits(q, k, causal=causal, window=window,
+                                      softcap=softcap, scale=scale)
+    p = torch.where(mask, torch.exp(t - lse.to(math)[..., None]), 0.0)
+    rep = H // Hkv
+    do = dout.to(math)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v.repeat_interleave(rep, dim=2).to(math))
+    delta = torch.einsum("bqhd,bqhd->bhq", do, o.to(math))
+    ds = p * (dp - delta[..., None])
+    if th is not None:
+        ds = ds * (1 - th * th)
+    dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds,
+                              k.repeat_interleave(rep, dim=2).to(math))
+    dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, q.to(math))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    Skv = k.shape[1]
+    dk = dk.reshape(B, Skv, Hkv, rep, D).sum(3)
+    dv = dv.reshape(B, Skv, Hkv, rep, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_tol(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -181,3 +252,129 @@ def flash_attention_tol(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return 1e-5 + 1e-5 * want.abs()
     p_abs_v = flash_attention_ref(q.float(), k.float(), v.float().abs(), **kw)
     return 1e-5 + 2.0 ** -7 * want.abs() + 2.0 ** -8 * p_abs_v
+
+
+def flash_attention_bwd_tol(q, k, v, o, lse, dout, want, *, causal: bool = True,
+                            window: int | None = None, softcap: float | None = None,
+                            scale: float | None = None):
+    """Bounds on (dq, dk, dv) of |kernel - want|, where ``want`` is
+    ``flash_attention_bwd_ref``'s (dq, dk, dv) from the same inputs: in fp64
+    for fp32 inputs (the exact answer x), in fp32 for bf16 ones. Returns
+    (elementwise bounds, normwise limits): three tensors shaped like the
+    outputs, and three floats that ``||kernel - want||_F`` must stay under.
+
+    Per kept pair (i, j) of a query head: A = scale |q_i|.|k_j|, the row's
+    d = dO_i.v_j - D_i, dS = P d f (f = 1 - tanh^2(s/c), 1 without a softcap),
+    and u = 2^-24. Both the fp32 kernel and the plain version compute in fp32
+    and keep P and dS in fp32 (the bf16 kernel differs: below):
+    - s is a sum of D products, off by gamma_D A; tanh has a slope of at most
+      1 and exp adds u |t - lse| and a few ulps, so P is off by gamma_(D+8)
+      P w, w = 8 + A (1 + 2/c) + |t - lse| (2/c: the error of f itself);
+    - dO_i.v_j and D_i are sums of D products, off by gamma_D times
+      B = |dO_i|.|v_j| + |dO_i|.|o_i|; so dS is off by gamma_(D+8) W,
+      W = P (|d| w + B);
+    - dq_i sums n = Skv terms scale dS_ij k_j, dk_j and dv_j n = S * H/Hkv
+      terms: gamma_n of the sum of the terms' magnitudes,
+      M_d = scale |dS|.|k| (dq), scale |dS|^T.|q| (dk), P^T.|dO| (dv).
+    With M_w as M_d with W for |dS| (dq, dk) and P w for P (dv), an fp32
+    result lies within (D + 8) u M_w + (n + 2) u M_d of x before its own
+    rounding; each bound carries 1% more for the second-order terms.
+    fp32 kernel against x: 1e-9 + u |x| + (D + 8) u M_w + (n + 2) u M_d.
+
+    The bf16 kernel rounds P and dS to bf16 before their products on the
+    tensor cores, each by at most 2^-8 of itself (dS from the fp32 P, so dS
+    carries one rounding): 2^-8 M_d. Its products add the tensor cores'
+    k-steps, which truncate each addend below the largest's last bit
+    (measured on the H100 for the forward's wgmma: at most 17 2^-23 of a
+    step's magnitudes, ~2.2 n u M over n / 16 steps), and it is compared
+    with the fp32 plain version, which errs as above, both outputs rounded
+    to bf16: 1e-9 + 2^-7 |x| + 2^-8 M_d + 4 (D + 8) u M_w + 4 (n + 2) u M_d.
+
+    Normwise. The bf16 roundings of dS (or P) and of the two outputs are
+    independent and unbiased, each uniform within 2^-8 of its value, so of
+    variance at most 2^-16/3 of its square: the rounding part of the error
+    has an rms of at most 2^-8/sqrt(3) (sqrt(R) + 2 ||x||), R =
+    scale^2 sum dS^2 |k_j|^2 (dq), scale^2 sum dS^2 |q_i|^2 (dk), sum P^2
+    |dO_i|^2 (dv). Over the 10^4 or more entries of an output its norm stays
+    near that rms; the limit is sqrt(3) times it, with the sums' worst case
+    added in full: 1e-9 sqrt(N) + 2^-8 (sqrt(R) + 2 ||x||) + ||4 (D + 8) u
+    M_w + 4 (n + 2) u M_d||_F. fp32: 1e-9 sqrt(N) + u ||x|| + ||(D + 8) u M_w
+    + (n + 2) u M_d||_F, which the elementwise bound implies. A kernel that
+    is off by a few percent of an output's norm fails it.
+    """
+    B, S, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    scale = D ** -0.5 if scale is None else scale
+    qa, ka, oa, da = (t.float().abs() for t in (q, k, o, dout))
+    ka_r = ka.repeat_interleave(rep, dim=2)
+    vf_r = v.float().repeat_interleave(rep, dim=2)
+    t, th, mask, _ = _flash_logits(q.float(), k.float(), causal=causal, window=window,
+                                   softcap=softcap, scale=scale)
+    t = t - lse.float()[..., None]
+    p = torch.where(mask, torch.exp(t), 0.0)
+    # w = 8 + A (1 + 2/c) + |t - lse| on the kept pairs
+    w = torch.where(mask, t.abs_(), 0.0)
+    del t
+    a_cap = 1 + (2 / softcap if softcap else 0.0)
+    w += scale * a_cap * torch.einsum("bqhd,bkhd->bhqk", qa, ka_r)
+    w += 8
+    do = dout.float()
+    d = (torch.einsum("bqhd,bkhd->bhqk", do, vf_r)
+         - torch.einsum("bqhd,bqhd->bhq", do, o.float())[..., None])
+    ds = p * d
+    if th is not None:
+        ds *= 1 - th * th
+    del th
+    b_mag = (torch.einsum("bqhd,bkhd->bhqk", da, vf_r.abs())
+             + torch.einsum("bqhd,bqhd->bhq", da, oa)[..., None])
+    wd = p * (d.abs_() * w + b_mag)           # W, the error weight of dS
+    del d, b_mag
+    w *= p                                    # P w, the error weight of P
+
+    def per_kv(x):   # sum a kv head's query heads: (B, Skv, H, D) -> (B, Skv, Hkv, D)
+        return x.reshape(B, Skv, Hkv, rep, D).sum(3)
+
+    dsa = ds.abs()
+    m_d = (scale * torch.einsum("bhqk,bkhd->bqhd", dsa, ka_r),
+           scale * per_kv(torch.einsum("bhqk,bqhd->bkhd", dsa, qa)),
+           per_kv(torch.einsum("bhqk,bqhd->bkhd", p, da)))
+    m_w = (scale * torch.einsum("bhqk,bkhd->bqhd", wd, ka_r),
+           scale * per_kv(torch.einsum("bhqk,bqhd->bkhd", wd, qa)),
+           per_kv(torch.einsum("bhqk,bqhd->bkhd", w, da)))
+    del dsa, wd, w
+    ds2 = ds.square_()
+    r = ((scale ** 2 * torch.einsum("bhqk,bkh->", ds2, ka_r.square().sum(-1))).item(),
+         (scale ** 2 * torch.einsum("bhqk,bqh->", ds2, qa.square().sum(-1))).item(),
+         torch.einsum("bhqk,bqh->", p.square(), da.square().sum(-1)).item())
+    del ds2, p
+    u = 2.0 ** -24
+    bf16 = q.dtype != torch.float32
+    c = 4 if bf16 else 1
+    bounds, limits = [], []
+    for x, md, mw, n, rk in zip(want, m_d, m_w, (Skv, S * rep, S * rep), r):
+        x = x.float()
+        sums = 1.01 * (c * (D + 8) * u * mw + c * (n + 2) * u * md)
+        if bf16:
+            bounds.append(1e-9 + 2.0 ** -7 * x.abs() + 1.01 * 2.0 ** -8 * md + sums)
+            rounding = 2.0 ** -8 * (rk ** 0.5 + 2 * x.norm().item())
+        else:
+            bounds.append(1e-9 + u * x.abs() + sums)
+            rounding = u * x.norm().item()
+        limits.append(1e-9 * x.numel() ** 0.5 + rounding + sums.norm().item())
+    return tuple(bounds), tuple(limits)
+
+
+def flash_attention_bwd_errors(got, want, q, k, v, o, lse, dout, **kw) -> list[dict]:
+    """A backward kernel's (dq, dk, dv) ``got`` against ``want`` (see
+    ``flash_attention_bwd_tol``): for each output its max abs error, its
+    worst elementwise err/tol, and its norm err/limit. Each ratio must stay
+    at 1 or under."""
+    bounds, limits = flash_attention_bwd_tol(q, k, v, o, lse, dout, want, **kw)
+    out = []
+    for name, a, w, b, lim in zip(("dq", "dk", "dv"), got, want, bounds, limits):
+        err = a.double() - w.double()
+        out.append({"out": name, "max_abs_err": err.abs().max().item(),
+                    "err_over_tol": (err.abs() / b).max().item(),
+                    "norm_over_limit": err.norm().item() / lim})
+    return out

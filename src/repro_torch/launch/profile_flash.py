@@ -20,6 +20,20 @@ the VLM's self and unmasked cross layers), each with its masks, beside:
   2048, binds nothing), no mask for a cross shape: a yardstick the port
   never calls.
 
+The backward (``csrc/flash_attn_bwd.cu``: bf16 on the tensor cores, fp32 on FMAs)
+is timed at ``BWD_SHAPES`` (Qwen3-1.7B's training shape in bf16, the smoke
+config's in fp32) and, in bf16, at ``SERVE_SHAPES``, from the forward
+kernel's o and lse, beside: its bound (five products of 2 D flops a kept
+pair, 2.5x the forward's, over the type's peak, or q, k, v, o, dO, lse read
+and dq, dk, dv written over 3.35 TB/s); its plain version
+(``ref.flash_attention_bwd_ref``; not measured where its (B, H, S, Skv)
+fp32 probabilities pass ``PLAIN_BYTES``); and SDPA's forward + backward
+less its forward under autograd, eager (``library_ms``), which the port
+never calls. It holds the backward to ``ref.flash_attention_bwd_tol``
+(elementwise and normwise) where the plain version ran. ``check_flash_bwd``
+is the backward's card check at ``BWD_CHECKS``, which ``chip_smoke.py`` and
+``launch/check_bwd_faults.py`` run.
+
 It also holds the kernel's output to ``ref.flash_attention_tol`` (fp32:
 against the exact answer, the plain version in fp64) and reports the worst
 err/tol; at ``ACCURACY``'s large-logit fp32 inputs it reports the kernel's
@@ -41,7 +55,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attn import flash_attention_f32, flash_attention_tc
+from repro_torch.kernels.flash_attn import (flash_attention_bwd_bf16, flash_attention_bwd_f32,
+                                            flash_attention_cuda, flash_attention_f32,
+                                            flash_attention_tc)
 from repro_torch.launch.profile_serve import BATCH, SEQ
 from repro_torch.launch.profile_step import gpu_line
 from repro_torch.launch.timing import (BF16_FLOPS_PER_S, FP32_FLOPS_PER_S, TF32_FLOPS_PER_S,
@@ -65,7 +81,31 @@ SERVE_SHAPES = (
     ((BATCH, SEQ, 1601, 64, 8, 128), {"causal": False},
      "llama-3.2-vision-90b cross layer's prefill over 1601 vision tokens"),
 )
-WRAPPERS = {"flash_attn": flash_attention_tc, "flash_attn_f32": flash_attention_f32}
+WRAPPERS = {"flash_attn": flash_attention_tc, "flash_attn_f32": flash_attention_f32,
+            "flash_attn_bwd": flash_attention_bwd_bf16,
+            "flash_attn_bwd_f32": flash_attention_bwd_f32}
+# the backward on the training path: Qwen3-1.7B at 4 x 2048 tokens a step
+# (chip_smoke.py's second batch stage) in bf16, the smoke config in fp32
+TRAIN = (4, 2048, 2048, 16, 8, 128)
+BWD_SHAPES = (("flash_attn_bwd", TRAIN, torch.bfloat16, CAUSAL, "Qwen3-1.7B training"),
+              ("flash_attn_bwd_f32", SMOKE, torch.float32, CAUSAL, "Qwen3 smoke training"))
+PLAIN_BYTES = 4 << 30   # the plain backward's (B, H, S, Skv) fp32 tensors, at most
+# the backward's card check (chip_smoke.py, launch/check_bwd_faults.py), both
+# dtypes: ((B, S, Skv, H, Hkv, D), masks, q and k's scale, what); fp32 at
+# batch 2 at most. The softcap case scales q and k so that |s| reaches the
+# cap (1 - tanh^2(s/50) down to ~0.4), or the backward's softcap factor would
+# go untested
+BWD_CHECKS = (
+    (TRAIN, CAUSAL, 1.0, "Qwen3-1.7B training"),
+    ((8, 2048, 2048, 16, 8, 128), CAUSAL, 1.0, "Qwen3-1.7B prefill"),
+    ((8, 2048, 2048, 24, 8, 64), CAUSAL, 1.0, "granite-moe-3b-a800m prefill"),
+    ((2, 4096, 4096, 16, 1, 256), {"causal": True, "window": 2048}, 1.0,
+     "recurrentgemma-9b local, window 2048: bands skip"),
+    ((2, 2048, 1601, 64, 8, 128), {"causal": False}, 1.0,
+     "llama-3.2-vision-90b cross, unmasked (batch 8 cut to 2)"),
+    ((2, 1024, 1024, 16, 8, 128), {"causal": True, "softcap": 50.0}, 4.0,
+     "softcap 50 (gemma2), q and k x4"),
+)
 # fp32 inputs with large logits (|s| up to ~50): ((B, S, Skv, H, Hkv, D), q and
 # k's scale, masks), as the card tests' window/softcap and large-logit cases
 ACCURACY = (((2, 300, 300, 4, 2, 128), 3.0, dict(causal=True, window=16)),
@@ -161,6 +201,106 @@ def time_flash(name: str, shape: tuple, dtype: torch.dtype, masks: dict, what: s
     return t
 
 
+def check_flash_bwd(shape: tuple, masks: dict, mag: float, dtype: torch.dtype,
+                    gen: torch.Generator) -> dict:
+    """The backward kernel for ``dtype`` at one case of ``BWD_CHECKS``, from
+    the forward kernel's o and lse, against its plain version (bf16: in
+    fp32; fp32: in fp64, the exact answer): per output its max abs error,
+    worst err/tol and norm err/limit (``ref.flash_attention_bwd_errors``),
+    and the launches its wrapper counted."""
+    b, s, skv, h, hkv, d = shape
+    b = b if dtype == torch.bfloat16 else min(b, 2)
+    dev = gen.device
+    fn = WRAPPERS["flash_attn_bwd" if dtype == torch.bfloat16 else "flash_attn_bwd_f32"]
+    q = (mag * torch.randn(b, s, h, d, generator=gen, device=dev)).to(dtype)
+    k = (mag * torch.randn(b, skv, hkv, d, generator=gen, device=dev)).to(dtype)
+    v, do = (torch.randn(*shape_, generator=gen, device=dev).to(dtype)
+             for shape_ in ((b, skv, hkv, d), (b, s, h, d)))
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **masks)
+    before = fn.launches
+    got = fn(q, k, v, o, lse, do, **masks)
+    launched = fn.launches - before
+    if dtype == torch.float32:
+        want = ref.flash_attention_bwd_ref(*(x.double() for x in (q, k, v, o, lse, do)),
+                                           **masks)
+    else:
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **masks)
+    errors = ref.flash_attention_bwd_errors(got, want, q, k, v, o, lse, do, **masks)
+    del q, k, v, do, o, lse, got, want
+    torch.cuda.empty_cache()
+    return {"at": f"B{b} S{s} Skv{skv} H{h}/{hkv} D{d} {str(dtype)[6:]} "
+                  f"{', '.join(f'{k}={v}' for k, v in masks.items())}"
+                  + (f", q and k x{mag:g}" if mag != 1 else ""),
+            "kernel": fn.__name__, "launches": launched, "errors": errors,
+            "max_abs_err": max(e["max_abs_err"] for e in errors),
+            "worst_err_over_tol": max(e["err_over_tol"] for e in errors),
+            "worst_norm_over_limit": max(e["norm_over_limit"] for e in errors)}
+
+
+def time_flash_bwd(name: str, shape: tuple, dtype: torch.dtype, masks: dict, what: str,
+                   gen: torch.Generator) -> dict:
+    """The backward at one shape (B, S, Skv, H, Hkv, D) under ``masks``, from
+    the forward kernel's o and lse: ms (graph replay), eager ms, bound,
+    plain ms, SDPA's backward ms, and its worst err/tol where the plain
+    version ran (fp32: against the exact answer, the plain version in fp64)."""
+    b, s, skv, h, hkv, d = shape
+    dev = gen.device
+    fn = WRAPPERS[name]
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, skv, hkv, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, skv, hkv, d, generator=gen, device=dev).to(dtype)
+    do = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **masks)
+    pairs = b * h * kept_pairs(s, skv, **masks)
+    assert masks.get("window", s) >= s, masks   # SDPA's mask is the same function
+    big = s >= 1024
+    kw = dict(iters=5, replays=3) if big else dict(iters=50, replays=10)
+    call = lambda: fn(q, k, v, o, lse, do, **masks)   # noqa: E731
+    t = {"ms": graph_ms(call, **kw), "eager_ms": eager_ms(call, iters=kw["iters"])}
+    plain_fits = 4 * b * h * s * skv <= PLAIN_BYTES
+    t["plain_ms"] = (eager_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **masks),
+                              iters=3 if big else 20) if plain_fits else None)
+    # SDPA: forward + backward under autograd, less the forward alone
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=masks["causal"],
+                                              enable_gqa=True)
+    fwd_bwd = eager_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot),
+                       iters=kw["iters"])
+    t["library_ms"] = fwd_bwd - eager_ms(sdpa, iters=kw["iters"])
+    t["library_fwd_bwd_ms"] = fwd_bwd
+    e = q.element_size()
+    t["bytes"] = e * 4 * (q.numel() + k.numel()) + 4 * lse.numel()
+    t["flops"] = 10 * d * pairs      # five products of 2 D flops a kept pair
+    if plain_fits:
+        got = call()
+        if dtype == torch.float32:
+            want = ref.flash_attention_bwd_ref(*(x.double() for x in (q, k, v, o, lse, do)),
+                                               **masks)
+        else:
+            want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **masks)
+        errors = ref.flash_attention_bwd_errors(got, want, q, k, v, o, lse, do, **masks)
+        t["max_abs_err"] = max(e["max_abs_err"] for e in errors)
+        t["worst_err_over_tol"] = max(e["err_over_tol"] for e in errors)
+        t["worst_norm_over_limit"] = max(e["norm_over_limit"] for e in errors)
+        del got, want
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"], peak)
+    t["fma_bound_ms"] = bound(t["bytes"], t["flops"], FP32_FLOPS_PER_S)[0]
+    t["rate"] = ("bf16 tensor cores 989 TFLOP/s (fma_bound_ms: fp32 67 TFLOP/s), "
+                 "HBM 3.35 TB/s" if dtype == torch.bfloat16 else
+                 "fp32 67 TFLOP/s, HBM 3.35 TB/s")
+    t["tflops_per_s"] = t["flops"] / t["ms"] / 1e9
+    t["of_bound"] = t["bound_ms"] / t["ms"]
+    t["at"] = (f"B{b} S{s} Skv{skv} H{h} Hkv{hkv} D{d} {str(dtype)[6:]} "
+               f"{', '.join(f'{k}={v}' for k, v in masks.items())} ({what})")
+    del q, k, v, do, o, lse, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return t
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", type=Path, default=None)
@@ -177,6 +317,12 @@ def main() -> int:
             ("flash_attn", shape, torch.bfloat16, masks, what)
             for shape, masks, what in SERVE_SHAPES):
         t = {"kernel": name, **time_flash(name, shape, dtype, masks, what, gen)}
+        result["shapes"].append(t)
+        print(json.dumps(t))
+    for name, shape, dtype, masks, what in BWD_SHAPES + tuple(
+            ("flash_attn_bwd", shape, torch.bfloat16, masks, what)
+            for shape, masks, what in SERVE_SHAPES):
+        t = {"kernel": name, **time_flash_bwd(name, shape, dtype, masks, what, gen)}
         result["shapes"].append(t)
         print(json.dumps(t))
     result["accuracy"] = accuracy(gen)

@@ -15,8 +15,9 @@ Parameter names are the JAX paths with "." for "/", under ``layers.<i>``:
 ``{"k", "v"}`` for attention (a cross layer's holds the vision tokens'),
 ``{"ssm", "conv"}`` for SSD and ``{"hidden", "conv"}`` for RG-LRU.
 
-Three entry points take the parameters as a nested dict (``Transformer.tree``
-or ``compute_params``); a model with cross layers takes ``vision`` (B,
+Three entry points take the parameters as a nested dict (``Transformer.tree``,
+``params_tree`` of the trainer's flat ``{name: tensor}``, or
+``compute_params``); a model with cross layers takes ``vision`` (B,
 vision_tokens, cross_kv_dim), the stub vision tower's output:
     forward(params, tokens, cfg, vision=)         -> (logits, aux)   (train)
     prefill(params, tokens, cfg, vision=)         -> (last_logits, cache)
@@ -239,6 +240,24 @@ class Transformer(nn.Module):
         return _tree(self)
 
 
+def params_tree(flat: dict[str, torch.Tensor]) -> dict:
+    """The trainer's flat ``{name: tensor}`` (``TrainState.params``, the
+    names of ``named_parameters``) as the nested dict the entry points
+    take, ``Transformer.tree``'s shape: ``layers`` a list, every other
+    level a dict. No copy: the tensors are the ones given, so the
+    gradients of a loss computed from the tree land on them."""
+    root: dict = {}
+    for name, t in flat.items():
+        *path, leaf = name.split(".")
+        node = root
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t
+    layers = root.get("layers", {})
+    root["layers"] = [layers[str(i)] for i in range(len(layers))]
+    return root
+
+
 def init(cfg: ArchConfig, *, seed: int = 0, device=None) -> Transformer:
     """A model with fresh fp32 weights drawn from ``seed`` on ``device``."""
     gen = torch.Generator(device=device_lib.resolve(device))
@@ -261,7 +280,9 @@ def compute_params(params, dtype: torch.dtype) -> dict:
     stacks) cast to the compute dtype once; the MoE router's kernel, norm
     scales, the SSD's ``dt_bias``, ``A_log`` and ``D`` and the RG-LRU's
     gate matrices, biases and ``lambda_param`` (used in fp32) stay fp32.
-    The JAX model casts at each use, which gives the same values."""
+    The JAX model casts at each use, which gives the same values. The casts
+    are differentiable: under autograd the gradients of the copies land on
+    the fp32 masters, as the trainer needs."""
     if isinstance(params, nn.Module):
         params = params.tree()
     if isinstance(params, dict):
@@ -344,10 +365,10 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig, *, vision=None):
     layers' load-balance loss summed in fp32, 0 without MoE layers.
     ``vision`` (B, vision_tokens, cross_kv_dim) feeds the cross layers.
 
-    On the card the attention is the flash kernel, which has no backward
-    yet: under autograd with weights that need gradients it raises, so
-    call it under ``torch.no_grad()``. Training the transformer waits for
-    a later slice; on the host the plain attention is differentiable."""
+    Differentiable on both devices: on the card the attention is the flash
+    forward kernel, whose gradient is the backward kernel
+    (``kernels/flash_attn.py:FlashAttention``); on the host its plain
+    version under autograd."""
     params = _as_tree(params)
     _check_vision(cfg, vision)
     x = _embed_in(params, cfg, tokens)

@@ -4,8 +4,9 @@ vision keys), and cached decode with a rolling buffer for local
 (sliding-window) layers.
 
 Full-sequence self-attention (training forward and prefill) goes through
-``kernels.ops.flash_attention``: the hand-written CUDA kernel on the card,
-its plain version on the host. That replaces both the JAX package's
+``kernels.ops.flash_attention``: the hand-written CUDA kernels on the card
+(the forward, and under autograd the backward kernel as its gradient), its
+plain version on the host. That replaces both the JAX package's
 ``_sdpa`` branch and its query-chunked branch, which compute the same
 function; a cross layer runs it unmasked (``causal=False``) over the
 vision tokens. One-token decode uses the plain ``_sdpa``, as the JAX

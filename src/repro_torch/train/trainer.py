@@ -134,7 +134,8 @@ def _rank_mean(grid: TorusGrid, *values: torch.Tensor) -> list[torch.Tensor]:
     return list(stacked.unbind(0))
 
 
-def make_train_step(loss_fn: Callable, cfg: TrainerConfig, grid: TorusGrid | None = None):
+def make_train_step(loss_fn: Callable, cfg: TrainerConfig, grid: TorusGrid | None = None,
+                    groups=None):
     """Build the step ``(state, batch, epoch, global_batch) -> (state, metrics)``.
 
     ``loss_fn(params, batch, grid) -> (loss, aux)`` computes the LOCAL mean
@@ -144,6 +145,8 @@ def make_train_step(loss_fn: Callable, cfg: TrainerConfig, grid: TorusGrid | Non
     ``TorusGrid`` (default ``topology.world_grid()``: every rank, or the
     1 x 1 grid without a process group). ``cfg.grad_sync`` must be resolved
     (``grad_sync.resolve_sync_config``; ``Trainer.run`` does it).
+    ``groups``: the reference's stacked leaves (``convert.leaf_groups``), for
+    the sync's plan and LARS's trust ratios; None: one a leaf (the ResNet).
     """
     grid = grid if grid is not None else topology.world_grid()
     schedule = sched_lib.make(cfg.schedule)
@@ -160,7 +163,8 @@ def make_train_step(loss_fn: Callable, cfg: TrainerConfig, grid: TorusGrid | Non
             if guard.enabled:
                 tot = tot * scale.to(tot.dtype)
             grads = torch.autograd.grad(tot, [params[k] for k in names])
-        grads = grad_sync_lib.sync_tree(dict(zip(names, grads)), grid, cfg.grad_sync)
+        grads = grad_sync_lib.sync_tree(dict(zip(names, grads)), grid, cfg.grad_sync,
+                                        groups)
         if guard.enabled:
             inv = 1.0 / scale   # exact for the power-of-two scales we use
             grads = {k: g * inv.to(g.dtype) for k, g in grads.items()}
@@ -177,7 +181,7 @@ def make_train_step(loss_fn: Callable, cfg: TrainerConfig, grid: TorusGrid | Non
         mom = schedule.mom(epoch, global_batch)
         new_params, new_opt = lars_lib.update(
             state.params, grads, state.opt_state, lr=lr, momentum=mom,
-            cfg=cfg.lars)
+            cfg=cfg.lars, groups=groups)
 
         if guard.enabled:
             # skip the update on non-finite steps: params/momentum pass
@@ -249,6 +253,7 @@ class Trainer:
     fault_plan: Any | None = None      # repro_torch.testing.chaos.FaultPlan
     telemetry: Any | None = None       # repro_torch.obs.Telemetry; None:
                                        # built from cfg.obs, closed by run()
+    leaf_groups: Any | None = None     # convert.leaf_groups; None: one a leaf
 
     def run(self, state: TrainState, max_steps: int | None = None,
             log: Callable = print, resume: bool = False):
@@ -356,9 +361,9 @@ class Trainer:
                     # param structure + resolved config: publish it as
                     # per-bucket gauges (re-published after a downgrade)
                     grad_sync_lib.record_bucket_metrics(
-                        state.params, run_cfg.grad_sync, tel.registry)
+                        state.params, run_cfg.grad_sync, tel.registry, self.leaf_groups)
                     # ONE step fn for every stage of this attempt
-                    fn = make_train_step(self.loss_fn, run_cfg, grid)
+                    fn = make_train_step(self.loss_fn, run_cfg, grid, self.leaf_groups)
                     try:
                         state = self._run_steps(
                             fn, state, run_cfg, grid, data_fn, start_step,

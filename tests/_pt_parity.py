@@ -255,3 +255,54 @@ def trainer_body(rank: int, world: int, sizes, params, num_classes: int, runs) -
                 for h in history if h["kind"] == "metric"]
         out[key] = (rows, params_to_jax(state.params))
     return out
+
+
+def lm_batch(step: int, global_batch: int, seq: int, vocab: int):
+    """The global batch of an LM step: (tokens, labels) (gb, seq) int32
+    from numpy seed ``step``, labels the tokens shifted by one, the same
+    for both packages."""
+    rng = np.random.RandomState(2000 + step)
+    t = rng.randint(0, vocab, (global_batch, seq + 1)).astype(np.int32)
+    return t[:, :-1], t[:, 1:]
+
+
+def lm_trainer_body(rank: int, world: int, sizes, arch: str, params, seq: int,
+                    runs) -> dict:
+    """The port's ``Trainer`` on ``arch``'s smoke config (fp32 compute) from
+    the JAX ``params``, with the launcher's loss and the reference's stacked
+    leaves as LARS and sync groups, for each run of ``runs`` ({key:
+    (GradSyncConfig kwargs, stages as (start, end, per-rank batch), dataset
+    size)}), every rank fed its rows of ``lm_batch``; returns {key: (per-step
+    metric rows, final params {port name: array})}."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.core import topology
+    from repro_torch.core.batch_control import build_plan
+    from repro_torch.core.grad_sync import GradSyncConfig
+    from repro_torch.core.schedules import BatchSchedule, BatchStage
+    from repro_torch.launch.train import loss_fn_for
+    from repro_torch.train.state import TrainState
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    grid = topology.select_grid(sizes).build()
+    cfg = dataclasses.replace(registry.get_smoke(arch), compute_dtype=torch.float32)
+    start = convert.transformer_from_jax(params, cfg, device="cpu")
+    groups = convert.leaf_groups(start, cfg)
+
+    def data_fn(i, gb):
+        return tuple(torch.from_numpy(a).long() for a in lm_batch(i, gb, seq, cfg.vocab))
+
+    out = {}
+    for key, (sync_kw, stages, dataset_size) in runs.items():
+        plan = build_plan(BatchSchedule(tuple(BatchStage(*s) for s in stages)),
+                          dataset_size=dataset_size, n_workers=world)
+        tcfg = TrainerConfig(schedule="B", log_every=1, grad_sync=GradSyncConfig(**sync_kw))
+        trainer = Trainer(loss_fn_for(cfg, 0.1), tcfg, plan, data_fn, grid=grid,
+                          leaf_groups=groups)
+        state, history = trainer.run(TrainState.create(dict(start)), log=lambda s: None)
+        rows = [{k: h[k] for k in ("step", "loss", "global_batch", "skipped", "lr")}
+                for h in history if h["kind"] == "metric"]
+        out[key] = (rows, {k: _np(v) for k, v in state.params.items()})
+    return out

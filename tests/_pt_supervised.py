@@ -52,8 +52,8 @@ def _stall(rank: int, spec):
     clock = _LateClock(spec["steps"], spec["late_s"])
     real_make = trainer_mod.make_train_step
 
-    def make(loss_fn, cfg, grid=None):
-        fn = real_make(loss_fn, cfg, grid)
+    def make(loss_fn, cfg, grid=None, groups=None):
+        fn = real_make(loss_fn, cfg, grid, groups)
 
         def step(state, batch, epoch, gb):
             out = fn(state, batch, epoch, gb)

@@ -17,8 +17,8 @@ from repro_torch.core.grad_sync import GradSyncConfig
 from repro_torch.core.schedules import BatchSchedule, BatchStage
 from repro_torch.data.synthetic import SyntheticImageNet
 from repro_torch.kernels import ls_xent, ops, ref
-from repro_torch.kernels.flash_attn import (flash_attention_cuda, flash_attention_f32,
-                                            flash_attention_tc)
+from repro_torch.kernels.flash_attn import (flash_attention_bwd_cuda, flash_attention_cuda,
+                                            flash_attention_f32, flash_attention_tc)
 from repro_torch.kernels.lars_update import MAX_LEAVES, lars_update_cuda
 from repro_torch.kernels.ls_xent import ls_xent_bwd_cuda, ls_xent_fwd_cuda
 from repro_torch.models import resnet
@@ -240,7 +240,8 @@ def test_tiny_resnet_trains_the_same_on_the_card_and_the_host(cuda):
     # every leaf, LARS and skip, in two launches a step
     assert ops.launch_counts() == {"lars_update": 2 * 3, "ls_xent_fwd": 3,
                                    "ls_xent_bwd": 3, "flash_attn": 0,
-                                   "flash_attn_f32": 0}
+                                   "flash_attn_f32": 0, "flash_attn_bwd": 0,
+                                   "flash_attn_bwd_f32": 0}
     # cuDNN and the host sum convolutions in different orders
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         assert abs(a - b) <= 1e-4 * max(1.0, abs(b))
@@ -441,17 +442,141 @@ def test_lars_wrapper_refuses_cpu_mixed_and_non_fp32_leaves(cuda):
         lars_update_cuda([y], [y], [y], [True], **LARS_KW)
 
 
-def test_transformer_forward_under_autograd_raises_on_the_card(cuda):
-    """The flash kernel has no backward: rather than drop the gradients of
-    everything behind attention, the wrapper refuses tracked inputs."""
-    cfg = registry.get_smoke("qwen3-1.7b")
-    model = T.init(cfg, seed=0, device=cuda)
-    tokens = torch.randint(1, cfg.vocab, (2, 16), generator=_gen(cuda, 0), device=cuda)
-    with pytest.raises(RuntimeError, match="no backward"):
-        T.forward(model, tokens, cfg)
+# (B, S, Skv, H, Hkv, D, causal, window, softcap): causal, window, softcap,
+# GQA and MQA, a ragged Skv, the unmasked cross layer, every head dim
+BWD_CASES = [
+    (2, 128, 128, 4, 2, 64, True, None, None),
+    (2, 100, 100, 4, 2, 32, True, 16, 50.0),
+    (1, 200, 137, 4, 1, 128, False, None, None),
+    (1, 256, 256, 2, 1, 256, True, 100, None),
+    (1, 256, 256, 4, 2, 128, True, None, 30.0),
+    (2, 77, 77, 8, 8, 64, True, None, None),
+    (2, 64, 1601, 8, 2, 128, False, None, None),
+]
+
+
+def _bwd_inputs(dev, case, dtype, seed=0, mag=1.0):
+    """q, k, v, the forward kernel's o and lse, dO; q and k times ``mag``."""
+    b, s, skv, h, hkv, d, causal, window, softcap = case
+    g_ = _gen(dev, seed)
+    q, do = (torch.randn(b, s, h, d, generator=g_, device=dev) for _ in range(2))
+    k, v = (torch.randn(b, skv, hkv, d, generator=g_, device=dev) for _ in range(2))
+    q, k = mag * q, mag * k
+    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    return (q, k, v, o, lse, do), kw
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(cuda, case, dtype):
+    (q, k, v, o, lse, do), kw = _bwd_inputs(cuda, case, dtype)
+    _, want_lse = ref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                          return_lse=True, **kw)
+    # the forward's lse: the row sums in fp32
+    torch.testing.assert_close(lse.double(), want_lse, rtol=1e-6, atol=1e-5)
+    _check_bwd(q, k, v, o, lse, do, dtype, kw)
+
+
+def _check_bwd(q, k, v, o, lse, do, dtype, kw):
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    if dtype == torch.float32:   # the exact answer (see flash_attention_bwd_tol)
+        want = ref.flash_attention_bwd_ref(*(x.double() for x in (q, k, v, o, lse, do)), **kw)
+    else:
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+    for e in ref.flash_attention_bwd_errors(got, want, q, k, v, o, lse, do, **kw):
+        assert e["err_over_tol"] <= 1 and e["norm_over_limit"] <= 1, e
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [c for c in BWD_CASES if c[-1]])
+def test_flash_bwd_kernel_matches_plain_where_logits_reach_the_softcap(cuda, case, dtype):
+    """q and k scaled x4, so that |s| reaches the cap and the backward's
+    factor 1 - tanh^2(s / softcap) falls well under 1 (unscaled randn
+    inputs keep it over 0.99, where a kernel without it would pass)."""
+    (q, k, v, o, lse, do), kw = _bwd_inputs(cuda, case, dtype, seed=5, mag=4.0)
+    _check_bwd(q, k, v, o, lse, do, dtype, kw)
+
+
+def test_flash_bwd_repeats_bit_for_bit(cuda):
+    for dtype in (torch.bfloat16, torch.float32):
+        args, kw = _bwd_inputs(cuda, BWD_CASES[4], dtype, seed=1)
+        runs = [flash_attention_bwd_cuda(*args, **kw) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_flash_attention_under_autograd_launches_the_backward(cuda):
+    """On the card ``ops.flash_attention`` under autograd is the forward
+    kernel with lse and the backward kernel as its gradient."""
+    (q, k, v, _, _, do), kw = _bwd_inputs(cuda, BWD_CASES[1], torch.float32, seed=2)
+    q, k, v = (x.clone().requires_grad_(True) for x in (q, k, v))
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, **kw)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    counts = ops.launch_counts()
+    assert counts["flash_attn_f32"] == 1 and counts["flash_attn_bwd_f32"] == 1
     with torch.no_grad():
-        logits, _ = T.forward(model, tokens, cfg)
-    assert logits.shape == (2, 16, cfg.vocab) and bool(torch.isfinite(logits).all())
+        o, lse = ref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                         return_lse=True, **kw)
+        want = ref.flash_attention_bwd_ref(q.double(), k.double(), v.double(), o, lse,
+                                           do.double(), **kw)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.double(), w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma2-27b", "recurrentgemma-9b",
+                                  "llama-3.2-vision-90b"])
+def test_transformer_gradients_card_vs_host(cuda, arch):
+    """The smoke transformer's loss gradients, fp32, on the card (the flash
+    forward and backward kernels) and on the host (the plain attention
+    under autograd), from the same weights and batch."""
+    import dataclasses
+
+    from repro_torch.launch import train as launch_train
+    cfg = dataclasses.replace(registry.get_smoke(arch), compute_dtype=torch.float32)
+    host = T.init(cfg, seed=0, device="cpu")
+    g_ = torch.Generator().manual_seed(1)
+    batch = [torch.randint(0, cfg.vocab, (2, 40), generator=g_) for _ in range(2)]
+    if cfg.vision_tokens:
+        batch.append(torch.randn(2, cfg.vision_tokens, cfg.cross_kv_dim, generator=g_))
+    loss_fn = launch_train.loss_fn_for(cfg, 0.1)
+    grads = {}
+    for d in ("cpu", "cuda"):
+        params = {k: p.detach().to(d).requires_grad_(True) for k, p in host.named_parameters()}
+        ops.reset_launch_counts()
+        loss, aux = loss_fn(params, tuple(t.to(d) for t in batch), None)
+        names = list(params)
+        grads[d] = dict(zip(names, torch.autograd.grad(loss, [params[n] for n in names])))
+        if d == "cuda":
+            n_attn = sum(k in ("attn", "local", "cross") for k in cfg.kinds())
+            assert ops.launch_counts()["flash_attn_bwd_f32"] == n_attn
+    for name, g in grads["cpu"].items():
+        torch.testing.assert_close(grads["cuda"][name].cpu(), g, rtol=1e-4, atol=1e-6,
+                                   msg=name)
+
+
+def test_grouped_lars_kernel_matches_plain_across_two_tables(cuda):
+    """A group of leaves split over two launches' tables (more than
+    MAX_LEAVES leaves) takes one trust ratio from the norms over all of
+    them, as the plain version computes it."""
+    g_ = _gen(cuda, 3)
+    n = MAX_LEAVES + 40
+    ps, gs, vs = ([s * torch.randn(257, generator=g_, device=cuda) for _ in range(n)]
+                  for s in (1.0, 0.1, 0.01))
+    lars = [True] * (n - 10) + [False] * 10
+    groups = [1] * (MAX_LEAVES - 30) + [60] + [1] * (n - 10 - MAX_LEAVES - 30) + [10]
+    before = lars_update_cuda.launches
+    got = ops.lars_update_leaves(ps, gs, vs, lars, **LARS_KW, groups=groups)
+    want = ref.lars_update_leaves_ref(ps, gs, vs, lars, **LARS_KW, groups=groups)
+    torch.cuda.synchronize()
+    assert lars_update_cuda.launches == before + 4     # two tables: 2 norms, 2 updates
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -238,7 +238,8 @@ def test_cpu_tensors_launch_no_kernel():
                         torch.randn(1, 8, 1, 32))
     assert ops.launch_counts() == {"lars_update": 0, "ls_xent_fwd": 0,
                                    "ls_xent_bwd": 0, "flash_attn": 0,
-                                   "flash_attn_f32": 0}
+                                   "flash_attn_f32": 0, "flash_attn_bwd": 0,
+                                   "flash_attn_bwd_f32": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
