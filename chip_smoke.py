@@ -25,7 +25,9 @@
    skipped), the VLM's cross shape (Skv 1601, unmasked) and a softcap of
    50 with q and k scaled x4, so that the logits reach the cap (fp32 at
    batch 2, against the plain version in fp64), elementwise and on each
-   output's norm;
+   output's norm; and calls the backward twice on the same inputs at the
+   training shape and granite's, in both dtypes, which must give the same
+   bytes;
 4. times each kernel beside its bound (the larger of bytes over the HBM
    rate and operations over the peak for the inputs' type; fp32 flash:
    three TF32 products, with the fp32 FMA bound beside it), its plain
@@ -99,7 +101,9 @@
    the launcher's loss and the stacked-leaf groups) on the card and the
    host from the same weights and batch, which must agree within
    ``SMOKE_STEP_TOL`` and launch the fp32 flash backward once an attention
-   or cross layer on the card;
+   or cross layer on the card; then saves each smoke config's train state
+   on the card in the reference's stacked format (``groups=``) and
+   restores it, which must give params and momentum back bit for bit;
 10. destroys the process group, and prints one ``{"kernels": [...]}``
    line, the card line again, and as the last line ``{"ok": true,
    "device": {...}}``.
@@ -390,6 +394,59 @@ def train_lm(torch, dev, grid, card: str) -> dict:
             "exchanges": len(layout), "per_leaf_exchanges": per_leaf,
             "sync_bytes": sync_bytes, "port_leaves": 310, "groups": 13,
             "seq": LM_SEQ, "init_s": init_s, "run_s": run_s}
+
+
+def repeat_flash_bwd(torch, gen) -> None:
+    """The backward in both dtypes, called twice on the same inputs at the
+    training shape and granite's GQA prefill (``profile_flash.BWD_REPEATS``;
+    fp32 at batch 2): the outputs must be equal, byte for byte."""
+    from repro_torch.launch import profile_flash
+
+    for shape, masks, _, what in profile_flash.BWD_REPEATS:
+        for dtype in (torch.bfloat16, torch.float32):
+            same = profile_flash.repeat_flash_bwd(shape, masks, dtype, gen)
+            print(f"repeat flash_attn_bwd {shape} {str(dtype)[6:]} ({what}): two calls "
+                  f"{'equal' if same else 'DIFFERENT'}")
+            if not same:
+                fail(f"flash_attn_bwd at {shape} {dtype}: two calls on the same inputs differ")
+
+
+def checkpoint_round_trip(torch) -> None:
+    """Each of the ten smoke configs' train states on the card (params from
+    seed 0, momentum seeded at random) saved with the reference's stacked
+    leaves (``groups=convert.leaf_groups``) and restored into a state of
+    zeros: params and momentum must come back bit for bit, on the card."""
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.train import checkpoint
+    from repro_torch.train.state import TrainState
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    for arch in registry.ARCH_IDS:
+        cfg = registry.get_smoke(arch)
+        params = {k: p.detach() for k, p in T.init(cfg, seed=0, device=dev).named_parameters()}
+        groups = convert.leaf_groups(params, cfg)
+        state = TrainState.create(params)
+        state.opt_state["momentum"] = {k: torch.randn(p.shape, generator=g, device=dev)
+                                       for k, p in params.items()}
+        state.step = 7
+        like = TrainState.create({k: torch.zeros_like(p) for k, p in params.items()})
+        with tempfile.TemporaryDirectory() as d:
+            path = checkpoint.save(d, state, groups=groups)
+            n_stored = len(checkpoint.load_manifest(path)["leaves"])
+            nbytes = os.path.getsize(path)
+            got = checkpoint.restore(path, like, groups=groups)
+        same = got.step == 7 and all(
+            got.params[k].device == p.device and torch.equal(got.params[k], p)
+            and torch.equal(got.opt_state["momentum"][k], state.opt_state["momentum"][k])
+            for k, p in params.items())
+        print(f"checkpoint {arch} smoke on the card: {len(params)} port params in "
+              f"{len(groups)} groups, {n_stored} leaves stored (params, momentum, 3 scalars), "
+              f"{nbytes} B, restored {'bit for bit' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"{arch}: the stacked checkpoint did not restore bit for bit")
 
 
 def smoke_train_card_vs_host(torch, grid) -> int:
@@ -980,6 +1037,7 @@ def run(torch, store_dir: str) -> int:
     flash_err = check_flash(torch, dev, gen)
     t0 = time.perf_counter()
     flash_bwd_err = check_flash_bwd(torch, gen)
+    repeat_flash_bwd(torch, gen)
     print(f"phase check flash_attn_bwd: {time.perf_counter() - t0:.1f} s")
 
     # -- timing at the main path's shapes ------------------------------------
@@ -1154,6 +1212,9 @@ def run(torch, store_dir: str) -> int:
     t0 = time.perf_counter()
     bwd_f32_launches = smoke_train_card_vs_host(torch, grid)
     print(f"phase smoke train steps, card vs host: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    checkpoint_round_trip(torch)
+    print(f"phase smoke checkpoints, stacked, on the card: {time.perf_counter() - t0:.1f} s")
 
     # -- report ---------------------------------------------------------------
     sources = {

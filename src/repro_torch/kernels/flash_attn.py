@@ -14,7 +14,8 @@ repeat, so these wrappers only check and launch.
 Training: ``FlashAttention`` (a ``torch.autograd.Function``) launches the
 forward with each row's logsumexp (``lse``, (B, H, S) fp32) and saves q, k,
 v, o and lse; its backward launches ``csrc/flash_attn_bwd.cu`` (both dtypes,
-three launches: D = rowsum(dO * o), then dK/dV, then dQ), counted once a
+three launches: D = rowsum(dO * o), then dK/dV, then dQ; bf16 at D 64 and
+128 on wgmma with TMA, at D 32 and 256 on mma.sync), counted once a
 call by ``flash_attention_bwd_bf16`` or ``flash_attention_bwd_f32``.
 Without autograd the forward skips lse.
 """
@@ -156,7 +157,9 @@ def _launch_bwd(dtype, q, k, v, o, lse, dout, causal, window, softcap, scale):
                          f"{(B, H, S)} on {q.device}, got {lse.dtype} {tuple(lse.shape)}")
     scale = D ** -0.5 if scale is None else scale
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty_like(lse)
+    # D_i and the kernels' copy of lse, rows padded to a multiple of 128
+    sp = -(-S // 128) * 128
+    delta = torch.empty(2 * B * H * sp, dtype=torch.float32, device=q.device)
     err = build.library().flash_attn_bwd(
         int(dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -169,7 +172,8 @@ def _launch_bwd(dtype, q, k, v, o, lse, dout, causal, window, softcap, scale):
 
 def flash_attention_bwd_bf16(q, k, v, o, lse, dout, *, causal=True, window=None,
                              softcap=None, scale=None):
-    """The backward on bf16 tensors (mma.sync tensor cores; a call is one count)."""
+    """The backward on bf16 tensors (tensor cores: wgmma with TMA at D 64 and
+    128, mma.sync at D 32 and 256; a call is one count)."""
     out = _launch_bwd(torch.bfloat16, q, k, v, o, lse, dout, causal, window, softcap,
                       scale)
     flash_attention_bwd_bf16.launches += 1

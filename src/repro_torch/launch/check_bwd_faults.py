@@ -29,20 +29,26 @@ import tempfile
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parents[1]   # src/repro_torch
-# name: (what it breaks, [(pattern, replacement, matches)]); both kernels of
-# a dtype pair (bf16 tensor-core, fp32 FMA) get the fault
+# name: (what it breaks, [(pattern, replacement, matches)]); every kernel
+# pair of the backward gets the fault: bf16 on wgmma (D 64, 128), bf16 on
+# mma.sync (D 32, 256) and fp32 on FMAs
 FAULTS = {
     "no_delta": ("dS = P dP, without D_i = dO_i . o_i", [
-        (r"float ds = p \* \((dp\[\w+\]\[\w+\]) - sD\[il\]\);", r"float ds = p * \1;", 2)]),
+        (r"float ds = p \* \((dp\[\w+\](?:\[\w+\])?) - (?:sD\[il\]|dl)\);",
+         r"float ds = p * \1;", 4)]),
     "no_softcap_factor": ("dS without its factor 1 - tanh^2(s / softcap)", [
-        (r"if \(kSoftcap\) ds \*= 1\.f - th \* th;", "", 2)]),
+        (r"if \(kSoftcap\) ds \*= 1\.f - th \* th;", "", 4)]),
     "dq_skips_key_tile": ("dQ leaves out the second key tile a row visits", [
-        (r"(const int k0 = kt \* k?BT;)", r"\1\n    if (kt == kt0 + 1) continue;", 2)]),
+        (r"(const int k0 = kt \* k?BT;)", r"\1\n    if (kt == kt0 + 1) continue;", 2),
+        (r"kk < BN / 16(; \+\+kk\)\s+wgmma_bf16_rs<D>\(acc,)",
+         r"kk < (kb == kb0 + 1 ? 0 : BN / 16)\1", 1)]),
     "dkdv_skips_key_tile": ("dK and dV of key tile 1 stay zero", [
         (r"for \(int (gi?) = 0; \1 < G; \+\+\1\)",
-         r"for (int \1 = 0; \1 < (blockIdx.y == 1 ? 0 : G); ++\1)", 2)]),
+         r"for (int \1 = 0; \1 < (blockIdx.y == 1 ? 0 : G); ++\1)", 2),
+        (r"const int n = G \* nq;", "const int n = (blockIdx.y == 1 ? 0 : G) * nq;", 1)]),
     "dkdv_one_head": ("GQA: dK and dV sum only the first query head of a group", [
-        (r"for \(int (gi?) = 0; \1 < G; \+\+\1\)", r"for (int \1 = 0; \1 < 1; ++\1)", 2)]),
+        (r"for \(int (gi?) = 0; \1 < G; \+\+\1\)", r"for (int \1 = 0; \1 < 1; ++\1)", 2),
+        (r"const int n = G \* nq;", "const int n = 1 * nq;", 1)]),
 }
 
 

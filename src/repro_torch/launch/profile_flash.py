@@ -20,7 +20,8 @@ the VLM's self and unmasked cross layers), each with its masks, beside:
   2048, binds nothing), no mask for a cross shape: a yardstick the port
   never calls.
 
-The backward (``csrc/flash_attn_bwd.cu``: bf16 on the tensor cores, fp32 on FMAs)
+The backward (``csrc/flash_attn_bwd.cu``: bf16 on the tensor cores, wgmma
+at D 64 and 128 and mma.sync at D 32 and 256; fp32 on FMAs)
 is timed at ``BWD_SHAPES`` (Qwen3-1.7B's training shape in bf16, the smoke
 config's in fp32) and, in bf16, at ``SERVE_SHAPES``, from the forward
 kernel's o and lse, beside: its bound (five products of 2 D flops a kept
@@ -32,7 +33,8 @@ less its forward under autograd, eager (``library_ms``), which the port
 never calls. It holds the backward to ``ref.flash_attention_bwd_tol``
 (elementwise and normwise) where the plain version ran. ``check_flash_bwd``
 is the backward's card check at ``BWD_CHECKS``, which ``chip_smoke.py`` and
-``launch/check_bwd_faults.py`` run.
+``launch/check_bwd_faults.py`` run; ``repeat_flash_bwd`` checks at
+``BWD_REPEATS`` that two calls give the same bytes.
 
 It also holds the kernel's output to ``ref.flash_attention_tol`` (fp32:
 against the exact answer, the plain version in fp64) and reports the worst
@@ -106,6 +108,9 @@ BWD_CHECKS = (
     ((2, 1024, 1024, 16, 8, 128), {"causal": True, "softcap": 50.0}, 4.0,
      "softcap 50 (gemma2), q and k x4"),
 )
+# the repeat check (chip_smoke.py): two calls on the same inputs give the same
+# bytes, at the training shape and granite's GQA prefill (D 64), both dtypes
+BWD_REPEATS = (BWD_CHECKS[0], BWD_CHECKS[2])
 # fp32 inputs with large logits (|s| up to ~50): ((B, S, Skv, H, Hkv, D), q and
 # k's scale, masks), as the card tests' window/softcap and large-logit cases
 ACCURACY = (((2, 300, 300, 4, 2, 128), 3.0, dict(causal=True, window=16)),
@@ -235,6 +240,27 @@ def check_flash_bwd(shape: tuple, masks: dict, mag: float, dtype: torch.dtype,
             "max_abs_err": max(e["max_abs_err"] for e in errors),
             "worst_err_over_tol": max(e["err_over_tol"] for e in errors),
             "worst_norm_over_limit": max(e["norm_over_limit"] for e in errors)}
+
+
+def repeat_flash_bwd(shape: tuple, masks: dict, dtype: torch.dtype,
+                     gen: torch.Generator) -> bool:
+    """Whether two calls of the backward for ``dtype`` on the same inputs
+    (from the forward kernel's o and lse; fp32 at batch 2 at most) give
+    equal dq, dk and dv, byte for byte: the kernels take every sum in a
+    fixed order and use no float atomics."""
+    b, s, skv, h, hkv, d = shape
+    b = b if dtype == torch.bfloat16 else min(b, 2)
+    dev = gen.device
+    fn = WRAPPERS["flash_attn_bwd" if dtype == torch.bfloat16 else "flash_attn_bwd_f32"]
+    q, do = (torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, skv, hkv, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **masks)
+    first = fn(q, k, v, o, lse, do, **masks)
+    second = fn(q, k, v, o, lse, do, **masks)
+    same = all(torch.equal(x, y) for x, y in zip(first, second))
+    del q, k, v, do, o, lse, first, second
+    torch.cuda.empty_cache()
+    return same
 
 
 def time_flash_bwd(name: str, shape: tuple, dtype: torch.dtype, masks: dict, what: str,

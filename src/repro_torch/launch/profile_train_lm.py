@@ -46,8 +46,8 @@ STEPS = 5   # timed steps a stage, and as many under the profiler
 # kernel-name fragments -> class, first match wins; the rest is elementwise
 CLASSES = (
     ("flash forward", ("flash_tc_kernel", "flash_f32_kernel")),
-    ("flash backward", ("dkdv_kernel", "dkdv_tc_kernel", "dq_kernel", "dq_tc_kernel",
-                        "dot_kernel")),
+    ("flash backward", ("dkdv_kernel", "dkdv_tc_kernel", "dkdv_wg_kernel", "dq_kernel",
+                        "dq_tc_kernel", "dq_wg_kernel", "dot_kernel", "bwd_prep_kernel")),
     ("ls_xent", ("ls_xent_",)),
     ("lars", ("lars_norms_kernel", "lars_apply_kernel")),
     ("sync", ("nccl",)),

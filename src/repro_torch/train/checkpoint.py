@@ -10,7 +10,15 @@ Format:
   is stored in the reference's layout -- conv kernels HWIO
   (``convert.to_jax_layout``) -- so the same weights give the same bytes
   and CRCs in both packages, and a checkpoint written by either restores
-  in the other.
+  in the other. The ResNet's leaves are the port's one for one. A
+  transformer's reference tree stacks its layers (``blocks::<j>::...``
+  leads with the layer dim): every entry point here takes ``groups``
+  (``convert.leaf_groups(names, cfg)``), and with it writes each group of
+  the port's per-layer leaves as one stacked leaf, in the group's order,
+  and reads it back unstacked into the per-layer tensors. ``groups=None``
+  is one leaf a leaf, the ResNet's format; a transformer's checkpoint
+  written without its groups holds per-layer keys that the reference
+  does not read.
 * ``<name>.manifest.json`` -- sidecar carrying format version, step,
   optional trainer metadata (stage info), and per-leaf CRC32/shape/dtype.
 
@@ -84,19 +92,44 @@ class CheckpointCorruptError(CheckpointError):
     """The checkpoint on disk is truncated, tampered, or incomplete."""
 
 
-def _named(tree: dict, prefix: str) -> list[tuple[str, torch.Tensor]]:
-    """``(key, leaf)`` of a ``{name: tensor}`` dict, or of a dict of such
-    dicts (``opt_state``), in the order ``jax.tree_util`` flattens the
-    reference's tree: dict keys sorted, list indices by number
-    (``convert.jax_order``)."""
-    if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return [(prefix + _SEP + name.replace(".", _SEP), tree[name])
-                for name in convert.jax_order(tree)]
-    return [kv for k in sorted(tree) for kv in _named(tree[k], prefix + _SEP + k)]
+def _key_parts(path: str, name: str) -> list[str]:
+    """The npz key's components of the reference's leaf ``path`` (a JAX
+    path of ``convert.leaf_groups``) holding the port's leaf ``name``: the
+    port name's own components, case kept (``jax_path`` lowercases, the
+    reference's checkpoint does not: mamba2's ``A_log``), with a stacked or
+    prefix layer's ``layers.<i>`` as ``blocks.<j>`` or ``prefix.<i>``."""
+    parts = name.split(".")
+    if path.startswith(("blocks/", "prefix/")):
+        return path.split("/")[:2] + parts[2:]
+    return parts
 
 
-def _state_leaves(state: TrainState) -> list[tuple[str, torch.Tensor]]:
-    return _named(state.params, "params") + _named(state.opt_state, "opt")
+def _entries(tree: dict, prefix: str, groups
+             ) -> list[tuple[str, dict, tuple[str, ...], bool]]:
+    """``(key, leaves, names, stacked)`` of each leaf of the reference's
+    tree that a ``{name: tensor}`` dict, or a dict of such dicts
+    (``opt_state``), forms, in the order ``jax.tree_util`` flattens it
+    (dict keys sorted, list indices by number): ``leaves[n]`` for ``n`` in
+    ``names`` are its port leaves, stacked along a new leading dim when
+    ``stacked``. ``groups=None``: one leaf a port leaf."""
+    if not all(isinstance(v, torch.Tensor) for v in tree.values()):
+        return [e for k in sorted(tree) for e in _entries(tree[k], prefix + _SEP + k, groups)]
+    if groups is None:   # the ResNet's format: one group a leaf, none stacked
+        groups = convert.leaf_groups(tree)
+    if sorted(n for _, names in groups for n in names) != sorted(tree):
+        raise ValueError(f"{prefix}: the groups do not cover the state's leaves one for one")
+    return [(prefix + _SEP + _SEP.join(_key_parts(path, names[0])), tree, names,
+             convert.is_stacked(path)) for path, names in groups]
+
+
+def _state_entries(state: TrainState, groups):
+    return _entries(state.params, "params", groups) + _entries(state.opt_state, "opt", groups)
+
+
+def _shape(leaves: dict, names: tuple[str, ...], stacked: bool) -> tuple[int, ...]:
+    """The stored leaf's shape, in the reference's layout."""
+    shape = tuple(convert.to_jax_layout(leaves[names[0]]).shape)
+    return (len(names), *shape) if stacked else shape
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -108,8 +141,11 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return out.numpy()
 
 
-def _payload_of(state: TrainState) -> dict[str, np.ndarray]:
-    payload = {key: _to_host(leaf) for key, leaf in _state_leaves(state)}
+def _payload_of(state: TrainState, groups=None) -> dict[str, np.ndarray]:
+    payload = {}
+    for key, leaves, names, stacked in _state_entries(state, groups):
+        arrs = [_to_host(leaves[n]) for n in names]
+        payload[key] = np.stack(arrs) if stacked else arrs[0]
     payload["step"] = np.asarray(int(state.step), np.int32)
     payload["loss_scale"] = _to_host(state.loss_scale)
     payload["good_steps"] = _to_host(state.good_steps)
@@ -201,19 +237,19 @@ def _commit(directory: str, path: str, payload: dict[str, np.ndarray],
 
 
 def _prepare(directory: str, state: TrainState, name: str | None,
-             meta: dict | None):
+             meta: dict | None, groups=None):
     """Host snapshot + manifest: the synchronous part of every save."""
     step = int(state.step)
     name = name or f"step_{step:08d}"
     path = os.path.join(directory, f"{name}.npz")
-    payload = _payload_of(state)
+    payload = _payload_of(state, groups)
     return path, payload, _manifest_of(payload, step, name, meta)
 
 
 def save(directory: str, state: TrainState, name: str | None = None, *,
          retries: int = 3, backoff_s: float = 0.05, keep_last: int = 0,
          meta: dict | None = None, io_hook=None, on_retry=None,
-         metrics=NULL_REGISTRY) -> str:
+         metrics=NULL_REGISTRY, groups=None) -> str:
     """Atomically write ``state`` and its manifest; returns the npz path.
 
     ``io_hook(phase, attempt)`` (phases ``begin``/``payload``/``manifest``)
@@ -222,8 +258,10 @@ def save(directory: str, state: TrainState, name: str | None = None, *,
     each retried attempt to ``on_retry(attempt, exc)``. ``keep_last > 0``
     prunes to the newest K checkpoints by step after a successful write.
     ``metrics`` records commit latency/outcome (repro_torch.obs.metrics).
+    ``groups`` (``convert.leaf_groups``): the reference's stacked leaves,
+    which a transformer's state is written as; None for the ResNet.
     """
-    path, payload, manifest = _prepare(directory, state, name, meta)
+    path, payload, manifest = _prepare(directory, state, name, meta, groups)
     return _commit(directory, path, payload, manifest, retries=retries,
                    backoff_s=backoff_s, keep_last=keep_last,
                    io_hook=io_hook, on_retry=on_retry, metrics=metrics)
@@ -278,13 +316,14 @@ class AsyncCheckpointWriter:
 
     def save(self, directory: str, state: TrainState,
              name: str | None = None, *, keep_last: int = 0,
-             meta: dict | None = None, io_hook=None) -> str:
+             meta: dict | None = None, io_hook=None, groups=None) -> str:
         """Snapshot ``state`` to host and enqueue the commit; returns the
         npz path the worker will write. Blocks only on the snapshot and on
-        queue backpressure, never on payload IO."""
+        queue backpressure, never on payload IO. ``groups`` as for
+        :func:`save`."""
         if self._closed:
             raise CheckpointError("writer is closed")
-        path, payload, manifest = _prepare(directory, state, name, meta)
+        path, payload, manifest = _prepare(directory, state, name, meta, groups)
         with self._lock:
             self._pending += 1
             self._metrics.gauge("checkpoint/queue_depth").set(self._pending)
@@ -374,9 +413,11 @@ def load_manifest(path: str) -> dict | None:
         return None
 
 
-def validate(path: str, like: TrainState | None = None) -> dict:
+def validate(path: str, like: TrainState | None = None, groups=None) -> dict:
     """Full integrity check; returns the manifest or raises
-    :class:`CheckpointCorruptError` naming what is wrong."""
+    :class:`CheckpointCorruptError` naming what is wrong. With ``like``,
+    also that every leaf ``like`` needs (stacked by ``groups``) is there
+    in its shape."""
     if not os.path.exists(path):
         raise CheckpointCorruptError(f"{path}: missing")
     manifest = load_manifest(path)
@@ -406,13 +447,13 @@ def validate(path: str, like: TrainState | None = None) -> dict:
         raise CheckpointCorruptError(
             f"{path}: unreadable payload ({type(e).__name__}: {e})") from e
     if like is not None:
-        _check_structure(path, manifest, like)
+        _check_structure(path, manifest, like, groups)
     return manifest
 
 
-def _check_structure(path: str, manifest: dict, like: TrainState) -> None:
-    for key, leaf in _state_leaves(like):
-        shape = tuple(convert.to_jax_layout(leaf).shape)
+def _check_structure(path: str, manifest: dict, like: TrainState, groups) -> None:
+    for key, leaves, names, stacked in _state_entries(like, groups):
+        shape = _shape(leaves, names, stacked)
         info = manifest["leaves"].get(key)
         if info is None:
             raise CheckpointCorruptError(
@@ -424,37 +465,40 @@ def _check_structure(path: str, manifest: dict, like: TrainState) -> None:
                 f"target {shape}")
 
 
-def _fill(tree: dict, prefix: str, data, path: str) -> dict:
+def _fill(tree: dict, prefix: str, data, path: str, groups) -> dict:
     """A copy of ``tree`` (a ``{name: tensor}`` dict or a dict of such)
-    with every leaf read from ``data``, in the port's layout, on the
-    leaf's device and in its dtype and memory layout."""
+    with every leaf read from ``data`` (a stacked leaf unbound into its
+    group's leaves), in the port's layout, on the leaf's device and in its
+    dtype and memory layout."""
     if not all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return {k: _fill(v, prefix + _SEP + k, data, path) for k, v in tree.items()}
+        return {k: _fill(v, prefix + _SEP + k, data, path, groups) for k, v in tree.items()}
     out = {}
-    for name, leaf in tree.items():
-        key = prefix + _SEP + name.replace(".", _SEP)
+    for key, leaves, names, stacked in _entries(tree, prefix, groups):
         if key not in data:
             raise CheckpointCorruptError(f"{path}: missing leaf {key!r}")
         arr = data[key]
-        shape = tuple(convert.to_jax_layout(leaf).shape)
+        shape = _shape(leaves, names, stacked)
         if arr.shape != shape:
             raise CheckpointCorruptError(
                 f"{path}: {key}: shape {arr.shape} != {shape}")
-        out[name] = torch.empty_like(leaf).copy_(
-            torch.from_numpy(convert.from_jax_layout(arr)))
-    return out
+        for name, a in zip(names, arr if stacked else [arr]):
+            out[name] = torch.empty_like(leaves[name]).copy_(
+                torch.from_numpy(convert.from_jax_layout(a)))
+    return {name: out[name] for name in tree}
 
 
-def restore(path: str, like: TrainState, check: bool = True) -> TrainState:
+def restore(path: str, like: TrainState, check: bool = True, groups=None) -> TrainState:
     """Restore into the structure of ``like`` (shapes/dtypes validated).
 
     ``check=True`` (default) verifies the manifest + CRC32 of every leaf
     first and raises :class:`CheckpointCorruptError` on any mismatch.
     Returns the port's layout on ``like``'s device: ``step`` an ``int``,
-    ``loss_scale`` and ``good_steps`` tensors beside the params.
+    ``loss_scale`` and ``good_steps`` tensors beside the params. ``groups``
+    as for :func:`save`: each stacked leaf is unbound into ``like``'s
+    per-layer tensors.
     """
     if check:
-        validate(path, like)
+        validate(path, like, groups)
     try:
         npz = np.load(path)
     except Exception as e:
@@ -469,8 +513,8 @@ def restore(path: str, like: TrainState, check: bool = True) -> TrainState:
                 arr = np.asarray(default, dtype)
             return torch.as_tensor(arr).to(like_t.device, like_t.dtype)
 
-        return TrainState(params=_fill(like.params, "params", data, path),
-                          opt_state=_fill(like.opt_state, "opt", data, path),
+        return TrainState(params=_fill(like.params, "params", data, path, groups),
+                          opt_state=_fill(like.opt_state, "opt", data, path, groups),
                           step=int(data["step"]),
                           loss_scale=scalar("loss_scale", like.loss_scale),
                           good_steps=scalar("good_steps", like.good_steps))
@@ -510,14 +554,15 @@ def latest(directory: str) -> str | None:
 
 
 def latest_valid(directory: str, like: TrainState | None = None,
-                 on_skip: Callable[[str, str], None] | None = None
-                 ) -> str | None:
+                 on_skip: Callable[[str, str], None] | None = None,
+                 groups=None) -> str | None:
     """Newest checkpoint that passes full validation, walking backwards
     over corrupt/incomplete ones. ``on_skip(path, reason)`` observes each
-    rejected candidate (the trainer logs these as recovery events)."""
+    rejected candidate (the trainer logs these as recovery events);
+    ``groups`` as for :func:`save`."""
     for step, path in reversed(_candidates(directory)):
         try:
-            validate(path, like)
+            validate(path, like, groups)
             return path
         except CheckpointCorruptError as e:
             if on_skip is not None:

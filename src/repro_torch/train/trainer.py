@@ -253,7 +253,9 @@ class Trainer:
     fault_plan: Any | None = None      # repro_torch.testing.chaos.FaultPlan
     telemetry: Any | None = None       # repro_torch.obs.Telemetry; None:
                                        # built from cfg.obs, closed by run()
-    leaf_groups: Any | None = None     # convert.leaf_groups; None: one a leaf
+    # convert.leaf_groups: LARS's trust ratios, the sync's plan and the
+    # checkpoints' stacked leaves follow the reference's tree; None: one a leaf
+    leaf_groups: Any | None = None
 
     def run(self, state: TrainState, max_steps: int | None = None,
             log: Callable = print, resume: bool = False):
@@ -329,7 +331,7 @@ class Trainer:
             if resume and self.checkpoint_dir:
                 path = self._latest_valid(grid, state, event)
                 if path is not None:
-                    state = checkpoint.restore(path, state)
+                    state = checkpoint.restore(path, state, groups=self.leaf_groups)
                     start_step = int(state.step)
                     event("resume", path=os.path.basename(path),
                           step=start_step)
@@ -520,7 +522,7 @@ class Trainer:
             path = checkpoint.latest_valid(
                 self.checkpoint_dir, like=like,
                 on_skip=lambda p, reason: rejected.append(
-                    (os.path.basename(p), reason)))
+                    (os.path.basename(p), reason)), groups=self.leaf_groups)
         if grid.size > 1:
             box = [(path, rejected)]
             dist.broadcast_object_list(box, src=grid.world.ranks[0],
@@ -560,7 +562,7 @@ class Trainer:
                 "to -- set checkpoint_dir to enable elastic recovery"
             ) from failure
         state = retry_call(
-            lambda: checkpoint.restore(path, state),
+            lambda: checkpoint.restore(path, state, groups=self.leaf_groups),
             retries=self.cfg.ckpt_retries,
             backoff_s=self.cfg.retry_backoff_s, retry_on=(OSError,),
             seed=failure.step)
@@ -611,7 +613,7 @@ class Trainer:
             try:
                 writer.save(self.checkpoint_dir, state,
                             keep_last=self.cfg.ckpt_keep_last, meta=meta,
-                            io_hook=hook)
+                            io_hook=hook, groups=self.leaf_groups)
             except checkpoint.CheckpointError as e:
                 event("checkpoint_failed", step=int(state.step),
                       error=str(e))
@@ -622,7 +624,7 @@ class Trainer:
                 retries=self.cfg.ckpt_retries,
                 backoff_s=self.cfg.retry_backoff_s,
                 keep_last=self.cfg.ckpt_keep_last,
-                meta=meta, io_hook=hook, metrics=metrics,
+                meta=meta, io_hook=hook, metrics=metrics, groups=self.leaf_groups,
                 on_retry=lambda attempt, e: event(
                     "checkpoint_retry", step=int(state.step),
                     attempt=attempt, error=str(e)))

@@ -272,8 +272,9 @@ def lm_trainer_body(rank: int, world: int, sizes, arch: str, params, seq: int,
     the JAX ``params``, with the launcher's loss and the reference's stacked
     leaves as LARS and sync groups, for each run of ``runs`` ({key:
     (GradSyncConfig kwargs, stages as (start, end, per-rank batch), dataset
-    size)}), every rank fed its rows of ``lm_batch``; returns {key: (per-step
-    metric rows, final params {port name: array})}."""
+    size[, checkpoint dir to resume from])}), every rank fed its rows of
+    ``lm_batch``; returns {key: (per-step metric rows, final params {port
+    name: array})}."""
     import dataclasses
 
     from repro_torch import convert
@@ -295,13 +296,14 @@ def lm_trainer_body(rank: int, world: int, sizes, arch: str, params, seq: int,
         return tuple(torch.from_numpy(a).long() for a in lm_batch(i, gb, seq, cfg.vocab))
 
     out = {}
-    for key, (sync_kw, stages, dataset_size) in runs.items():
+    for key, (sync_kw, stages, dataset_size, *resume_dir) in runs.items():
         plan = build_plan(BatchSchedule(tuple(BatchStage(*s) for s in stages)),
                           dataset_size=dataset_size, n_workers=world)
         tcfg = TrainerConfig(schedule="B", log_every=1, grad_sync=GradSyncConfig(**sync_kw))
         trainer = Trainer(loss_fn_for(cfg, 0.1), tcfg, plan, data_fn, grid=grid,
-                          leaf_groups=groups)
-        state, history = trainer.run(TrainState.create(dict(start)), log=lambda s: None)
+                          leaf_groups=groups, checkpoint_dir=(resume_dir or [None])[0])
+        state, history = trainer.run(TrainState.create(dict(start)), log=lambda s: None,
+                                     resume=bool(resume_dir))
         rows = [{k: h[k] for k in ("step", "loss", "global_batch", "skipped", "lr")}
                 for h in history if h["kind"] == "metric"]
         out[key] = (rows, {k: _np(v) for k, v in state.params.items()})

@@ -202,9 +202,11 @@ def _emu_inputs(case):
 def _bf16_kernel(q, k, v, o, lse, do, fault=None, **kw):
     """The bf16 backward kernel's arithmetic on the host: P and dS in fp32,
     each rounded to bf16 before its products, fp32 sums, the outputs
-    rounded to bf16 (``csrc/flash_attn_bwd.cu``, ``tc_p_ds``); ``fault``
-    makes the mistake that ``check_bwd_faults.FAULTS`` of that name plants
-    (tiles of 64 keys)."""
+    rounded to bf16 (``csrc/flash_attn_bwd.cu``: ``dq_wg_kernel`` and
+    ``dkdv_wg_kernel`` at D 64 and 128, ``tc_p_ds`` at D 32 and 256);
+    ``fault`` makes the mistake that ``check_bwd_faults.FAULTS`` of that
+    name plants: dQ's key tiles and dK/dV's key blocks are 128 keys at D 64
+    and 128 and 64 at D 32 and 256."""
     B, S, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     rep, scale = H // Hkv, D ** -0.5
@@ -221,8 +223,9 @@ def _bf16_kernel(q, k, v, o, lse, do, fault=None, **kw):
         ds = ds * (1 - th * th)
     p, ds = p.bfloat16().float(), ds.bfloat16().float()
     ds_q = ds.clone()
+    bt = 128 if D in (64, 128) else 64   # the wgmma kernels' tiles, else mma.sync's
     if fault == "dq_skips_key_tile":
-        ds_q[..., 64:128] = 0
+        ds_q[..., bt:2 * bt] = 0
     dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds_q, k_r)
     if fault == "dkdv_one_head":   # each kv head sums its first query head only
         first = (torch.arange(H) % rep == 0)[None, :, None, None]
@@ -231,8 +234,8 @@ def _bf16_kernel(q, k, v, o, lse, do, fault=None, **kw):
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dk, dv = (x.reshape(B, Skv, Hkv, rep, D).sum(3) for x in (dk, dv))
     if fault == "dkdv_skips_key_tile":
-        dk[:, 64:128] = 0
-        dv[:, 64:128] = 0
+        dk[:, bt:2 * bt] = 0
+        dv[:, bt:2 * bt] = 0
     return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
 
 
@@ -266,8 +269,8 @@ def test_bwd_tolerance_catches_planted_faults(case, fault):
 
 def test_planted_faults_match_the_kernel_source():
     """Each fault of ``check_bwd_faults`` matches ``csrc/flash_attn_bwd.cu``
-    as often as it says (once in each kernel of a dtype pair), so the card
-    run plants every fault it names."""
+    as often as it says (once in each kernel pair it plants into: wgmma,
+    mma.sync, fp32), so the card run plants every fault it names."""
     src = (check_bwd_faults.PKG / "csrc" / "flash_attn_bwd.cu").read_text()
     for name, (_, subs) in check_bwd_faults.FAULTS.items():
         assert check_bwd_faults.plant(src, subs) != src, name

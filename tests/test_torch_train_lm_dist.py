@@ -31,10 +31,16 @@ Tolerances:
   and at least a quarter of that gap from the port's own fp32 run, so a
   sync that left out the bf16 cast (which would land within fp32 noise of
   the fp32 run) fails it.
+
+Resume: the reference's fp32 run writes its checkpoints in its stacked
+format (``repro/train/checkpoint.py``); the port's 8 ranks resume from the
+one of step 3 (``Trainer(leaf_groups=)`` reads it unstacked), take steps
+4-6 and are held to the fp32 gate against the reference's whole run.
 """
 
 import dataclasses
 import functools
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -79,12 +85,34 @@ def port(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def reference():
+def ckpt_root(tmp_path_factory):
+    return tmp_path_factory.mktemp("lm_ckpt")
+
+
+@pytest.fixture(scope="module")
+def reference(ckpt_root):
     mesh = jax.make_mesh((2, 4), ("dy", "dx"))
-    return functools.lru_cache(maxsize=None)(functools.partial(_reference, mesh))
+    return functools.lru_cache(maxsize=None)(functools.partial(_reference, mesh, ckpt_root))
 
 
-def _reference(mesh, key):
+@pytest.fixture(scope="module")
+def resumed(tmp_path_factory, ckpt_root, reference):
+    """The port's 8 ranks resuming the reference's fp32 run from its step-3
+    checkpoint: {rank: (metric rows, final params)}."""
+    _, params = _params()
+    reference("fp32")   # writes the checkpoints
+    src = ckpt_root / "fp32" / "step_00000003"
+    dst = tmp_path_factory.mktemp("lm_resume")
+    for suffix in (".npz", ".manifest.json"):
+        shutil.copy(str(src) + suffix, dst)
+    import torch
+    runs = {"fp32": (dict(RUNS["fp32"], comm_dtype=torch.float32), STAGES, DATASET, str(dst))}
+    out = launch(lm_trainer_body, tmp_path_factory.mktemp("lm_resumed"), (2, 4), ARCH, params,
+                 SEQ, runs, deadline_s=150)
+    return {r: out[r]["fp32"] for r in range(8)}
+
+
+def _reference(mesh, ckpt_root, key):
     cfg, params = _params()
     kw = dict(RUNS[key])
     kw["comm_dtype"] = getattr(jnp, kw.get("comm_dtype", "bfloat16"))
@@ -99,7 +127,7 @@ def _reference(mesh, key):
     trainer = Trainer(mesh=mesh, dp_axes=("dy", "dx"), loss_fn=loss_fn,
                       cfg=TrainerConfig(schedule="B", label_smoothing=0.1, log_every=1,
                                         grad_sync=GradSyncConfig(**kw)),
-                      plan=plan,
+                      plan=plan, checkpoint_dir=str(ckpt_root / key),
                       data_fn=lambda i, gb: tuple(
                           jnp.asarray(a) for a in lm_batch(i, gb, SEQ, cfg.vocab)))
     state, history = trainer.run(TrainState.create(params), log=lambda *a: None)
@@ -139,3 +167,20 @@ def test_lm_gate_trains_like_the_reference_over_two_batch_stages(port, reference
     for r in range(1, 8):   # every rank holds the same params
         for name, p in port[0][run][1].items():
             np.testing.assert_array_equal(port[r][run][1][name], p)
+
+
+def test_lm_resumes_from_the_reference_checkpoint_on_8_ranks(resumed, reference):
+    want_rows, want_params = reference("fp32")
+    for r in range(8):
+        rows, params = resumed[r]
+        assert [h["step"] for h in rows] == [h["step"] for h in want_rows[3:]] == [4, 5, 6]
+        assert [h["global_batch"] for h in rows] == [16] * 3
+        assert all(h["skipped"] == 0 for h in rows)
+        np.testing.assert_allclose([h["loss"] for h in rows],
+                                   [h["loss"] for h in want_rows[3:]], rtol=1e-5)
+        assert set(params) == set(want_params)
+        for name, w in want_params.items():
+            np.testing.assert_allclose(params[name], w, rtol=1e-4, atol=1e-5, err_msg=name)
+    for r in range(1, 8):
+        for name, p in resumed[0][1].items():
+            np.testing.assert_array_equal(resumed[r][1][name], p)
