@@ -17,17 +17,18 @@
    unmasked over 1601 keys, a multiple of no tile), bf16 through the bf16
    tensor-core kernel and fp32 through the 3xTF32 one (the wrapper picks by
    dtype), each under ``kernels/ref.py::flash_attention_tol``; and the
-   flash backward (``csrc/flash_attn_bwd.cu``) in bf16 and fp32 against its
-   plain version from the forward kernel's o and lse, under
+   flash backward (``csrc/flash_attn_bwd.cu``, bf16;
+   ``csrc/flash_attn_bwd_f32.cu``, fp32) in both dtypes against its plain
+   version from the forward kernel's o and lse, under
    ``ref.flash_attention_bwd_tol``, at Qwen3-1.7B's training shape (4 x
    2048 tokens), Qwen3's and granite's prefill shapes (D 128, 64),
    recurrentgemma's local shape (D 256, one kv head, window 2048, bands
-   skipped), the VLM's cross shape (Skv 1601, unmasked) and a softcap of
-   50 with q and k scaled x4, so that the logits reach the cap (fp32 at
-   batch 2, against the plain version in fp64), elementwise and on each
-   output's norm; and calls the backward twice on the same inputs at the
-   training shape and granite's, in both dtypes, which must give the same
-   bytes;
+   skipped), the VLM's cross shape (Skv 1601, unmasked), a softcap of 50
+   with q and k scaled x4, so that the logits reach the cap, and D 32 under
+   a window of 128 (fp32 at batch 2, against the plain version in fp64),
+   elementwise and on each output's norm; and calls the backward twice on
+   the same inputs at the training shape, granite's and recurrentgemma's,
+   in both dtypes, which must give the same bytes;
 4. times each kernel beside its bound (the larger of bytes over the HBM
    rate and operations over the peak for the inputs' type; fp32 flash:
    three TF32 products, with the fp32 FMA bound beside it), its plain
@@ -38,8 +39,9 @@
    ``repro_torch.launch.profile_flash``, the fp32 kernel at the smoke
    config's shape and at the Qwen3-1.7B prefill shape, the bf16 kernel also
    at the other served archs' prefill shapes (``profile_flash.SERVE_SHAPES``),
-   and the backward at the training shape (bf16) and the smoke config's
-   (fp32), and in bf16 at the served shapes, beside SDPA's backward;
+   and the backward at the training shape (both dtypes), gemma-7b's (bf16,
+   D 256) and the smoke config's (fp32), and in bf16 at the served shapes,
+   beside SDPA's backward;
 5. initialises an NCCL process group of one rank (a ``dist.FileStore`` in a
    temporary directory), builds the 1 x 1 torus grid on it, and checks that
    ``reduce_scatter_tensor``, ``all_reduce`` and ``all_gather_into_tensor``
@@ -271,13 +273,24 @@ def time_flash(torch, gen) -> dict:
         t = profile_flash.time_flash("flash_attn", shape, torch.bfloat16, masks, what, gen)
         print(f"time flash_attn ({t['at']}): {t}")
         out["flash_attn"]["serve"].append({k: t[k] for k in keys})
-    # the backward: bf16 at the training shape and the served shapes, fp32 at
-    # the smoke config's
-    for name, shape, dtype, masks, what in profile_flash.BWD_SHAPES:
-        out[name] = profile_flash.time_flash_bwd(name, shape, dtype, masks, what, gen)
-        print(f"time {name} ({out[name]['at']}): {out[name]}")
+    # the backward: each dtype's main-path row (bf16: the LM's training
+    # shape; fp32: the smoke config's), its other training rows under "train"
+    # (fp32 at Qwen3-1.7B's training shape, bf16 at gemma-7b's), bf16 also at
+    # the served shapes
     bkeys = ("ms", "eager_ms", "bound_ms", "fma_bound_ms", "plain_ms", "library_ms",
-             "tflops_per_s", "at")
+             "tflops_per_s", "max_abs_err", "worst_err_over_tol", "worst_norm_over_limit",
+             "at")
+    train = {}
+    for name, shape, dtype, masks, what in profile_flash.BWD_SHAPES:
+        t = profile_flash.time_flash_bwd(name, shape, dtype, masks, what, gen)
+        print(f"time {name} ({t['at']}): {t}")
+        main = profile_flash.TRAIN if dtype == torch.bfloat16 else profile_flash.SMOKE
+        if shape == main:
+            out[name] = t
+        else:
+            train.setdefault(name, []).append({k: t.get(k) for k in bkeys})
+    for name, rows in train.items():
+        out[name]["train"] = rows
     out["flash_attn_bwd"]["serve"] = []
     for shape, masks, what in profile_flash.SERVE_SHAPES:
         t = profile_flash.time_flash_bwd("flash_attn_bwd", shape, torch.bfloat16, masks,
@@ -398,8 +411,9 @@ def train_lm(torch, dev, grid, card: str) -> dict:
 
 def repeat_flash_bwd(torch, gen) -> None:
     """The backward in both dtypes, called twice on the same inputs at the
-    training shape and granite's GQA prefill (``profile_flash.BWD_REPEATS``;
-    fp32 at batch 2): the outputs must be equal, byte for byte."""
+    training shape, granite's GQA prefill and recurrentgemma's MQA at D 256
+    (``profile_flash.BWD_REPEATS``; fp32 at batch 2): the outputs must be
+    equal, byte for byte."""
     from repro_torch.launch import profile_flash
 
     for shape, masks, _, what in profile_flash.BWD_REPEATS:
@@ -1232,7 +1246,7 @@ def run(torch, store_dir: str) -> int:
         # reference takes by autodiff of its plain attention
         "flash_attn_bwd": ("cuda", "src/repro_torch/csrc/flash_attn_bwd.cu",
                            "src/repro/kernels/flash_attn.py:34", flash_bwd_err["bf16"][0]),
-        "flash_attn_bwd_f32": ("cuda", "src/repro_torch/csrc/flash_attn_bwd.cu",
+        "flash_attn_bwd_f32": ("cuda", "src/repro_torch/csrc/flash_attn_bwd_f32.cu",
                                "src/repro/kernels/flash_attn.py:34", flash_bwd_err["fp32"][0]),
     }
     main_rows = plan.stages[-1].global_batch
@@ -1279,7 +1293,7 @@ def run(torch, store_dir: str) -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
             **{k: t[k] for k in ("fma_bound_ms", "tflops_per_s", "library_fwd_bwd_ms",
-                                 "prefill", "serve") if k in t},
+                                 "prefill", "train", "serve") if k in t},
             **({"lm": xent_lm[name]} if name in xent_lm else {}),
             **({"worst_err_over_tol": check_ratio[name]} if name in check_ratio else {}),
             **({"worst_norm_over_limit": norm_ratio[name]} if name in norm_ratio else {}),

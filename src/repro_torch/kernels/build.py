@@ -29,10 +29,10 @@ _P = ctypes.c_void_p
 # q, k, v, o, lse, B, H, Hkv, S, Skv, D, scale, causal, window, softcap, stream
 _FLASH = (_P, _P, _P, _P, _P, *(ctypes.c_int,) * 6, ctypes.c_float, ctypes.c_int,
           ctypes.c_int, ctypes.c_float, _P)
-# bf16?, q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, Hkv, S, Skv, D, scale,
+# q, k, v, o, dout, lse, scratch, dq, dk, dv, B, H, Hkv, S, Skv, D, scale,
 # causal, window, softcap, stream
-_FLASH_BWD = (ctypes.c_int, *(_P,) * 10, *(ctypes.c_int,) * 6, ctypes.c_float,
-              ctypes.c_int, ctypes.c_int, ctypes.c_float, _P)
+_FLASH_BWD = (*(_P,) * 10, *(ctypes.c_int,) * 6, ctypes.c_float, ctypes.c_int,
+              ctypes.c_int, ctypes.c_float, _P)
 # C signature of each exported function: (argtypes), restype is int
 # (a cudaError_t, 0 on success).
 SIGNATURES = {
@@ -48,7 +48,8 @@ SIGNATURES = {
                     ctypes.c_int, ctypes.c_float, ctypes.c_int, _P),
     "flash_attn_fwd": _FLASH,      # fp32, csrc/flash_attn.cu
     "flash_attn_tc_fwd": _FLASH,   # bf16 on the tensor cores, csrc/flash_attn_tc.cu
-    "flash_attn_bwd": _FLASH_BWD,  # both dtypes, csrc/flash_attn_bwd.cu
+    "flash_attn_bwd": _FLASH_BWD,      # bf16, csrc/flash_attn_bwd.cu
+    "flash_attn_bwd_f32": _FLASH_BWD,  # fp32, csrc/flash_attn_bwd_f32.cu
 }
 
 _lock = threading.Lock()

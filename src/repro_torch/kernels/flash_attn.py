@@ -13,10 +13,11 @@ repeat, so these wrappers only check and launch.
 
 Training: ``FlashAttention`` (a ``torch.autograd.Function``) launches the
 forward with each row's logsumexp (``lse``, (B, H, S) fp32) and saves q, k,
-v, o and lse; its backward launches ``csrc/flash_attn_bwd.cu`` (both dtypes,
-three launches: D = rowsum(dO * o), then dK/dV, then dQ; bf16 at D 64 and
-128 on wgmma with TMA, at D 32 and 256 on mma.sync), counted once a
-call by ``flash_attention_bwd_bf16`` or ``flash_attention_bwd_f32``.
+v, o and lse; its backward launches three kernels (D = rowsum(dO * o), then
+dK/dV, then dQ): bf16 ``csrc/flash_attn_bwd.cu`` (wgmma with TMA at every
+head dim), fp32 ``csrc/flash_attn_bwd_f32.cu`` (3xTF32 on wgmma up to D
+128, FMAs at D 256), counted once a call by ``flash_attention_bwd_bf16``
+or ``flash_attention_bwd_f32``.
 Without autograd the forward skips lse.
 """
 
@@ -132,8 +133,8 @@ def flash_attention_f32(q, k, v, *, causal=True, window=None, softcap=None,
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, dout, *, causal=True, window=None,
                              softcap=None, scale=None):
-    """(dq, dk, dv) of the flash forward on the card (``csrc/flash_attn_bwd.cu``),
-    in the inputs' dtype: q, o, dout (B, S, H, D), k, v (B, Skv, Hkv, D),
+    """(dq, dk, dv) of the flash forward on the card (``csrc/flash_attn_bwd.cu``,
+    ``csrc/flash_attn_bwd_f32.cu``), in the inputs' dtype: q, o, dout (B, S, H, D), k, v (B, Skv, Hkv, D),
     lse (B, H, S) fp32 as the forward wrote it. Picks the bf16 or the fp32
     instance by dtype."""
     if q.dtype == torch.bfloat16:
@@ -159,21 +160,21 @@ def _launch_bwd(dtype, q, k, v, o, lse, dout, causal, window, softcap, scale):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # D_i and the kernels' copy of lse, rows padded to a multiple of 128
     sp = -(-S // 128) * 128
-    delta = torch.empty(2 * B * H * sp, dtype=torch.float32, device=q.device)
-    err = build.library().flash_attn_bwd(
-        int(dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, H, Hkv, S, Skv, D, scale, int(causal),
-        -1 if window is None else int(window), float(softcap or 0.0),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "flash_attn_bwd")
+    scratch = torch.empty(2 * B * H * sp, dtype=torch.float32, device=q.device)
+    name = "flash_attn_bwd" if dtype == torch.bfloat16 else "flash_attn_bwd_f32"
+    err = getattr(build.library(), name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, H, Hkv, S, Skv, D, scale, int(causal), -1 if window is None else int(window),
+        float(softcap or 0.0), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, name)
     return dq, dk, dv
 
 
 def flash_attention_bwd_bf16(q, k, v, o, lse, dout, *, causal=True, window=None,
                              softcap=None, scale=None):
-    """The backward on bf16 tensors (tensor cores: wgmma with TMA at D 64 and
-    128, mma.sync at D 32 and 256; a call is one count)."""
+    """The backward on bf16 tensors (``csrc/flash_attn_bwd.cu``: wgmma with
+    TMA at every head dim; a call is one count)."""
     out = _launch_bwd(torch.bfloat16, q, k, v, o, lse, dout, causal, window, softcap,
                       scale)
     flash_attention_bwd_bf16.launches += 1
@@ -182,7 +183,8 @@ def flash_attention_bwd_bf16(q, k, v, o, lse, dout, *, causal=True, window=None,
 
 def flash_attention_bwd_f32(q, k, v, o, lse, dout, *, causal=True, window=None,
                             softcap=None, scale=None):
-    """The backward on fp32 tensors (fp32 FMAs; a call is one count)."""
+    """The backward on fp32 tensors (``csrc/flash_attn_bwd_f32.cu``: 3xTF32 on
+    wgmma up to D 128, fp32 FMAs at D 256; a call is one count)."""
     out = _launch_bwd(torch.float32, q, k, v, o, lse, dout, causal, window, softcap,
                       scale)
     flash_attention_bwd_f32.launches += 1

@@ -200,7 +200,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_bwd_ref(q, k, v, o, lse, dout, *, causal: bool = True,
                             window: int | None = None, softcap: float | None = None,
                             scale: float | None = None):
-    """The backward kernels' function (``csrc/flash_attn_bwd.cu``): (dq, dk,
+    """The backward kernels' function (``csrc/flash_attn_bwd.cu``,
+    ``csrc/flash_attn_bwd_f32.cu``): (dq, dk,
     dv) of ``flash_attention_ref`` from q, k, v, its output ``o``, the
     output's gradient ``dout`` and the rows' logsumexp ``lse`` (B, H, S),
     by FA-2's formulas, not autograd:

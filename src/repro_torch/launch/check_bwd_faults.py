@@ -4,9 +4,10 @@
 
 For the unchanged source and for each fault of ``FAULTS``, it copies
 ``src/repro_torch`` into a temporary directory, plants the fault in the
-copy's ``csrc/flash_attn_bwd.cu`` (text substitutions, each of which must
-match as often as the fault says), builds the copy's kernels there (all
-copies at once, one ``nvcc`` a source), and runs the backward's card check
+copy's ``csrc/flash_attn_bwd.cu`` and ``csrc/flash_attn_bwd_f32.cu`` (text
+substitutions, each of which must match as often as the fault says),
+builds the copy's kernels there (all copies at once, one ``nvcc`` a
+source), and runs the backward's card check
 (``profile_flash.check_flash_bwd`` at ``profile_flash.BWD_CHECKS`` in bf16
 and fp32, which ``chip_smoke.py`` runs) on the copy in a child process. The
 checkout itself is left as it is. A fault is caught in a dtype when some
@@ -29,45 +30,60 @@ import tempfile
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parents[1]   # src/repro_torch
-# name: (what it breaks, [(pattern, replacement, matches)]); every kernel
-# pair of the backward gets the fault: bf16 on wgmma (D 64, 128), bf16 on
-# mma.sync (D 32, 256) and fp32 on FMAs
+BF16, F32 = "flash_attn_bwd.cu", "flash_attn_bwd_f32.cu"   # in csrc/
+_DS = (r"float ds = p \* \((dp\[\w+\](?:\[\w+\])?) - (?:sD\[il\]|dl)\);",
+       r"float ds = p * \1;")
+_CAP = (r"if \(kSoftcap\) ds \*= 1\.f - th \* th;", "")
+# name: (what it breaks, [(file, pattern, replacement, matches)]); every kernel
+# pair of the backward gets the fault: bf16 on wgmma (every D, csrc/
+# flash_attn_bwd.cu), fp32 in 3xTF32 on wgmma (D 32-128) and fp32 on FMAs
+# (D 256), both in csrc/flash_attn_bwd_f32.cu
 FAULTS = {
-    "no_delta": ("dS = P dP, without D_i = dO_i . o_i", [
-        (r"float ds = p \* \((dp\[\w+\](?:\[\w+\])?) - (?:sD\[il\]|dl)\);",
-         r"float ds = p * \1;", 4)]),
-    "no_softcap_factor": ("dS without its factor 1 - tanh^2(s / softcap)", [
-        (r"if \(kSoftcap\) ds \*= 1\.f - th \* th;", "", 4)]),
+    "no_delta": ("dS = P dP, without D_i = dO_i . o_i",
+                 [(BF16, *_DS, 2), (F32, *_DS, 3)]),
+    "no_softcap_factor": ("dS without its factor 1 - tanh^2(s / softcap)",
+                          [(BF16, *_CAP, 2), (F32, *_CAP, 3)]),
     "dq_skips_key_tile": ("dQ leaves out the second key tile a row visits", [
-        (r"(const int k0 = kt \* k?BT;)", r"\1\n    if (kt == kt0 + 1) continue;", 2),
-        (r"kk < BN / 16(; \+\+kk\)\s+wgmma_bf16_rs<D>\(acc,)",
-         r"kk < (kb == kb0 + 1 ? 0 : BN / 16)\1", 1)]),
+        (BF16, r"kk < BN / 16(; \+\+kk\)\s+wgmma_bf16_rs<DH>\(acc,)",
+         r"kk < (kb == kb0 + 1 ? 0 : BN / 16)\1", 1),
+        (F32, r"(const int k0 = kt \* kBT;)", r"\1\n    if (kt == kt0 + 1) continue;", 1),
+        (F32, r"(acc\[i\] \+= )(xq\[i\]);", r"\1kb == kb0 + 1 ? 0.f : \2;", 1)]),
     "dkdv_skips_key_tile": ("dK and dV of key tile 1 stay zero", [
-        (r"for \(int (gi?) = 0; \1 < G; \+\+\1\)",
-         r"for (int \1 = 0; \1 < (blockIdx.y == 1 ? 0 : G); ++\1)", 2),
-        (r"const int n = G \* nq;", "const int n = (blockIdx.y == 1 ? 0 : G) * nq;", 1)]),
+        (BF16, r"const int n = G \* nq;", "const int n = (blockIdx.y == 1 ? 0 : G) * nq;", 1),
+        (F32, r"const int n = G \* nq;", "const int n = (blockIdx.y == 1 ? 0 : G) * nq;", 1),
+        (F32, r"for \(int g = 0; g < G; \+\+g\)",
+         "for (int g = 0; g < (blockIdx.y == 1 ? 0 : G); ++g)", 1)]),
     "dkdv_one_head": ("GQA: dK and dV sum only the first query head of a group", [
-        (r"for \(int (gi?) = 0; \1 < G; \+\+\1\)", r"for (int \1 = 0; \1 < 1; ++\1)", 2),
-        (r"const int n = G \* nq;", "const int n = 1 * nq;", 1)]),
+        (BF16, r"const int n = G \* nq;", "const int n = 1 * nq;", 1),
+        (F32, r"const int n = G \* nq;", "const int n = 1 * nq;", 1),
+        (F32, r"for \(int g = 0; g < G; \+\+g\)", "for (int g = 0; g < 1; ++g)", 1)]),
 }
 
 
-def plant(source: str, subs) -> str:
-    """``source`` with each substitution made, which must match as often as given."""
-    for pattern, repl, count in subs:
-        source, n = re.subn(pattern, repl, source)
+def sources(pkg: Path = PKG) -> dict[str, str]:
+    """The backward's kernel sources under ``pkg/csrc``, by file name."""
+    return {name: (pkg / "csrc" / name).read_text() for name in (BF16, F32)}
+
+
+def plant(srcs: dict[str, str], subs) -> dict[str, str]:
+    """``srcs`` (file name: text) with each substitution made in its file,
+    which must match as often as given."""
+    out = dict(srcs)
+    for name, pattern, repl, count in subs:
+        out[name], n = re.subn(pattern, repl, out[name])
         if n != count:
-            raise ValueError(f"fault pattern {pattern!r} matched {n} times, not {count}")
-    return source
+            raise ValueError(f"fault pattern {pattern!r} matched {n} times in {name}, "
+                             f"not {count}")
+    return out
 
 
 def copy_with(root: Path, subs) -> Path:
     """``src/repro_torch`` copied under ``root/src`` with ``subs`` planted in
-    its backward kernel; its kernels build into ``root/build``."""
+    its backward kernels; its kernels build into ``root/build``."""
     dst = root / "src" / "repro_torch"
     shutil.copytree(PKG, dst, ignore=shutil.ignore_patterns("__pycache__"))
-    cu = dst / "csrc" / "flash_attn_bwd.cu"
-    cu.write_text(plant(cu.read_text(), subs))
+    for name, text in plant(sources(dst), subs).items():
+        (dst / "csrc" / name).write_text(text)
     return root / "src"
 
 

@@ -20,13 +20,15 @@ the VLM's self and unmasked cross layers), each with its masks, beside:
   2048, binds nothing), no mask for a cross shape: a yardstick the port
   never calls.
 
-The backward (``csrc/flash_attn_bwd.cu``: bf16 on the tensor cores, wgmma
-at D 64 and 128 and mma.sync at D 32 and 256; fp32 on FMAs)
-is timed at ``BWD_SHAPES`` (Qwen3-1.7B's training shape in bf16, the smoke
-config's in fp32) and, in bf16, at ``SERVE_SHAPES``, from the forward
-kernel's o and lse, beside: its bound (five products of 2 D flops a kept
-pair, 2.5x the forward's, over the type's peak, or q, k, v, o, dO, lse read
-and dq, dk, dv written over 3.35 TB/s); its plain version
+The backward (``csrc/flash_attn_bwd.cu``: bf16 on wgmma at every head dim;
+``csrc/flash_attn_bwd_f32.cu``: fp32 in 3xTF32 on wgmma up to D 128, on
+FMAs at D 256) is timed at ``BWD_SHAPES`` (Qwen3-1.7B's training shape in
+both dtypes, gemma-7b's at D 256 in bf16, the smoke config's in fp32) and,
+in bf16, at ``SERVE_SHAPES``, from the forward kernel's o and lse, beside:
+its bound (five products of 2 D flops a kept pair, 2.5x the forward's,
+over the bf16 peak or, for fp32, three TF32 products over the TF32 peak,
+with the fp32 FMA bound beside it; or q, k, v, o, dO, lse read and dq, dk,
+dv written over 3.35 TB/s); its plain version
 (``ref.flash_attention_bwd_ref``; not measured where its (B, H, S, Skv)
 fp32 probabilities pass ``PLAIN_BYTES``); and SDPA's forward + backward
 less its forward under autograd, eager (``library_ms``), which the port
@@ -42,8 +44,9 @@ err/tol; at ``ACCURACY``'s large-logit fp32 inputs it reports the kernel's
 and the fp32 plain version's err/tol against the exact answer, and the
 kernel's against the plain version. Device times come from CUDA-graph
 replay, eager times include the host's launch. Prints one JSON line a shape and the
-card's name and power limit; ``--out`` writes them as one JSON file. Needs a
-CUDA card; imports nothing of JAX.
+card's name and power limit; ``--out`` writes them as one JSON file;
+``--bwd`` times the backward rows only. Needs a CUDA card; imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -87,9 +90,13 @@ WRAPPERS = {"flash_attn": flash_attention_tc, "flash_attn_f32": flash_attention_
             "flash_attn_bwd": flash_attention_bwd_bf16,
             "flash_attn_bwd_f32": flash_attention_bwd_f32}
 # the backward on the training path: Qwen3-1.7B at 4 x 2048 tokens a step
-# (chip_smoke.py's second batch stage) in bf16, the smoke config in fp32
+# (chip_smoke.py's second batch stage) in both dtypes, gemma-7b's attention
+# at 4 x 2048 (D 256, 16/16 heads) in bf16, the smoke config in fp32
 TRAIN = (4, 2048, 2048, 16, 8, 128)
+GEMMA = (4, 2048, 2048, 16, 16, 256)
 BWD_SHAPES = (("flash_attn_bwd", TRAIN, torch.bfloat16, CAUSAL, "Qwen3-1.7B training"),
+              ("flash_attn_bwd_f32", TRAIN, torch.float32, CAUSAL, "Qwen3-1.7B training"),
+              ("flash_attn_bwd", GEMMA, torch.bfloat16, CAUSAL, "gemma-7b training"),
               ("flash_attn_bwd_f32", SMOKE, torch.float32, CAUSAL, "Qwen3 smoke training"))
 PLAIN_BYTES = 4 << 30   # the plain backward's (B, H, S, Skv) fp32 tensors, at most
 # the backward's card check (chip_smoke.py, launch/check_bwd_faults.py), both
@@ -107,10 +114,13 @@ BWD_CHECKS = (
      "llama-3.2-vision-90b cross, unmasked (batch 8 cut to 2)"),
     ((2, 1024, 1024, 16, 8, 128), {"causal": True, "softcap": 50.0}, 4.0,
      "softcap 50 (gemma2), q and k x4"),
+    ((4, 1024, 1024, 8, 2, 32), {"causal": True, "window": 128}, 1.0,
+     "D 32 under a window of 128 (the smoke configs' head dim)"),
 )
 # the repeat check (chip_smoke.py): two calls on the same inputs give the same
-# bytes, at the training shape and granite's GQA prefill (D 64), both dtypes
-BWD_REPEATS = (BWD_CHECKS[0], BWD_CHECKS[2])
+# bytes, at the training shape, granite's GQA prefill (D 64) and
+# recurrentgemma's MQA under its window (D 256), both dtypes
+BWD_REPEATS = (BWD_CHECKS[0], BWD_CHECKS[2], BWD_CHECKS[3])
 # fp32 inputs with large logits (|s| up to ~50): ((B, S, Skv, H, Hkv, D), q and
 # k's scale, masks), as the card tests' window/softcap and large-logit cases
 ACCURACY = (((2, 300, 300, 4, 2, 128), 3.0, dict(causal=True, window=16)),
@@ -312,12 +322,15 @@ def time_flash_bwd(name: str, shape: tuple, dtype: torch.dtype, masks: dict, wha
         t["worst_err_over_tol"] = max(e["err_over_tol"] for e in errors)
         t["worst_norm_over_limit"] = max(e["norm_over_limit"] for e in errors)
         del got, want
-    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
-    t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"], peak)
+    if dtype == torch.bfloat16:
+        t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"], BF16_FLOPS_PER_S)
+        t["rate"] = ("bf16 tensor cores 989 TFLOP/s (fma_bound_ms: fp32 67 TFLOP/s), "
+                     "HBM 3.35 TB/s")
+    else:   # 3xTF32: each product is three TF32 products on the tensor cores
+        t["bound_ms"], t["bound_by"] = bound(t["bytes"], 3 * t["flops"], TF32_FLOPS_PER_S)
+        t["rate"] = ("3xTF32: 3 products at TF32 494.7 TFLOP/s (fma_bound_ms: fp32 "
+                     "67 TFLOP/s), HBM 3.35 TB/s")
     t["fma_bound_ms"] = bound(t["bytes"], t["flops"], FP32_FLOPS_PER_S)[0]
-    t["rate"] = ("bf16 tensor cores 989 TFLOP/s (fma_bound_ms: fp32 67 TFLOP/s), "
-                 "HBM 3.35 TB/s" if dtype == torch.bfloat16 else
-                 "fp32 67 TFLOP/s, HBM 3.35 TB/s")
     t["tflops_per_s"] = t["flops"] / t["ms"] / 1e9
     t["of_bound"] = t["bound_ms"] / t["ms"]
     t["at"] = (f"B{b} S{s} Skv{skv} H{h} Hkv{hkv} D{d} {str(dtype)[6:]} "
@@ -330,6 +343,8 @@ def time_flash_bwd(name: str, shape: tuple, dtype: torch.dtype, masks: dict, wha
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--bwd", action="store_true",
+                    help="time the backward only (BWD_SHAPES and, in bf16, SERVE_SHAPES)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_flash: no CUDA device", file=sys.stderr)
@@ -339,7 +354,7 @@ def main() -> int:
     card = gpu_line()
     gen = torch.Generator(device="cuda").manual_seed(0)
     result = {"gpu": card, "torch": torch.__version__, "shapes": []}
-    for name, shape, dtype, masks, what in SHAPES + tuple(
+    for name, shape, dtype, masks, what in () if args.bwd else SHAPES + tuple(
             ("flash_attn", shape, torch.bfloat16, masks, what)
             for shape, masks, what in SERVE_SHAPES):
         t = {"kernel": name, **time_flash(name, shape, dtype, masks, what, gen)}
@@ -351,7 +366,7 @@ def main() -> int:
         t = {"kernel": name, **time_flash_bwd(name, shape, dtype, masks, what, gen)}
         result["shapes"].append(t)
         print(json.dumps(t))
-    result["accuracy"] = accuracy(gen)
+    result["accuracy"] = [] if args.bwd else accuracy(gen)
     for row in result["accuracy"]:
         print(json.dumps(row))
     if args.out is not None:

@@ -2,7 +2,9 @@
 TF32 product drops.
 
 Shared by the CPU emulation test of the fp32 flash kernel's arithmetic
-(tests/test_torch_attention.py) and its card test (tests/test_torch_cuda.py).
+(tests/test_torch_attention.py) and its card test (tests/test_torch_cuda.py),
+with the TF32 split that the emulations of the fp32 forward and backward
+(tests/test_torch_flash_bwd.py) take their products through.
 """
 
 import torch
@@ -41,3 +43,28 @@ def low_bit_qkv(seed: int, b: int = 2, s: int = 300, h: int = 2, hkv: int = 1,
     v = big[..., None] * (1 + e * 2.0 ** -15)
     return tuple(x.float().contiguous() for x in (q, k, v))
 
+
+def tf32_round(x):
+    """x rounded to the nearest TF32, ties away from zero, its low 13
+    mantissa bits cleared in the int32 view, as the kernel does."""
+    return ((x.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+THREE = ("hi.hi", "hi.lo", "lo.hi")
+
+
+def tf32_product(eq, a, b, terms):
+    """einsum(eq, a, b) as the fp32 kernel takes it on the tensor cores: the
+    sum, in fp32, of the TF32 products in ``terms`` of the split operands
+    (hi = x rounded to TF32, so hi + lo == x exactly for lo = x - hi, which
+    is then rounded to TF32 itself; "one": a single product of a and b
+    rounded to TF32). Each product of two TF32 values is exact in fp32."""
+    if terms == ("one",):
+        return torch.einsum(eq, tf32_round(a), tf32_round(b))
+    ah, bh = tf32_round(a), tf32_round(b)
+    part = {"hi.hi": (ah, bh), "hi.lo": (ah, tf32_round(b - bh)),
+            "lo.hi": (tf32_round(a - ah), bh)}
+    out = torch.einsum(eq, *part[terms[0]])
+    for t in terms[1:]:
+        out = out + torch.einsum(eq, *part[t])
+    return out

@@ -22,7 +22,7 @@ from repro.nn import layers as jL
 from repro_torch.kernels import ops, ref
 from repro_torch.nn import attention as tA
 from repro_torch.nn import layers as tL
-from _torch_flash_data import SCALE, low_bit_qkv
+from _torch_flash_data import SCALE, THREE, low_bit_qkv, tf32_product
 
 _TDT = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 # fp32: the same function summed in another order. bf16 inputs: fp32 math
@@ -156,42 +156,16 @@ def test_flash_bf16_tolerance_covers_the_tensor_core_rounding(causal, window, so
     assert bool(((plain.float() - want).abs() <= bound).all())
 
 
-def _tf32_round(x):
-    """x rounded to the nearest TF32, ties away from zero, its low 13
-    mantissa bits cleared in the int32 view, as the kernel does."""
-    return ((x.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
-
-
-THREE = ("hi.hi", "hi.lo", "lo.hi")
-
-
-def _tf32_product(eq, a, b, terms):
-    """einsum(eq, a, b) as the fp32 kernel takes it on the tensor cores: the
-    sum, in fp32, of the TF32 products in ``terms`` of the split operands
-    (hi = x rounded to TF32, so hi + lo == x exactly for lo = x - hi, which
-    is then rounded to TF32 itself; "one": a single product of a and b
-    rounded to TF32). Each product of two TF32 values is exact in fp32."""
-    if terms == ("one",):
-        return torch.einsum(eq, _tf32_round(a), _tf32_round(b))
-    ah, bh = _tf32_round(a), _tf32_round(b)
-    part = {"hi.hi": (ah, bh), "hi.lo": (ah, _tf32_round(b - bh)),
-            "lo.hi": (_tf32_round(a - ah), bh)}
-    out = torch.einsum(eq, *part[terms[0]])
-    for t in terms[1:]:
-        out = out + torch.einsum(eq, *part[t])
-    return out
-
-
 def _tf32_arithmetic(q, k, v, *, causal, window=None, softcap=None, scale=None,
                      s_terms=THREE, pv_terms=THREE):
     """The fp32 flash kernel's arithmetic, on the CPU: q times the scale,
-    S = Q.K^T and O = P.V each through ``_tf32_product``, the softmax and
+    S = Q.K^T and O = P.V each through ``tf32_product``, the softmax and
     its row sums in fp32."""
     group = q.shape[2] // k.shape[2]
     kf = k.repeat_interleave(group, 2)
     vf = v.repeat_interleave(group, 2)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    s = _tf32_product("bqhd,bkhd->bhqk", q * scale, kf, s_terms)
+    s = tf32_product("bqhd,bkhd->bhqk", q * scale, kf, s_terms)
     if softcap:
         s = softcap * torch.tanh(s / softcap)
     i = torch.arange(q.shape[1])[:, None]
@@ -203,7 +177,7 @@ def _tf32_arithmetic(q, k, v, *, causal, window=None, softcap=None, scale=None,
         keep &= j > i - window
     s = s.masked_fill(~keep, float("-inf"))
     e = torch.exp(s - s.amax(-1, keepdim=True))
-    o = _tf32_product("bhqk,bkhd->bqhd", e, vf, pv_terms)
+    o = tf32_product("bhqk,bkhd->bqhd", e, vf, pv_terms)
     return o / e.sum(-1).transpose(1, 2)[..., None]
 
 

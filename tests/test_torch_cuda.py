@@ -443,7 +443,9 @@ def test_lars_wrapper_refuses_cpu_mixed_and_non_fp32_leaves(cuda):
 
 
 # (B, S, Skv, H, Hkv, D, causal, window, softcap): causal, window, softcap,
-# GQA and MQA, a ragged Skv, the unmasked cross layer, every head dim
+# GQA and MQA, a ragged Skv, the unmasked cross layer, every head dim; D 256
+# twice (bf16: the warpgroups split the head dim; fp32: the FMA kernels),
+# the second MQA under a window and a softcap, S a multiple of no tile
 BWD_CASES = [
     (2, 128, 128, 4, 2, 64, True, None, None),
     (2, 100, 100, 4, 2, 32, True, 16, 50.0),
@@ -452,6 +454,7 @@ BWD_CASES = [
     (1, 256, 256, 4, 2, 128, True, None, 30.0),
     (2, 77, 77, 8, 8, 64, True, None, None),
     (2, 64, 1601, 8, 2, 128, False, None, None),
+    (2, 300, 300, 4, 1, 256, True, 130, 30.0),
 ]
 
 
@@ -503,11 +506,12 @@ def test_flash_bwd_kernel_matches_plain_where_logits_reach_the_softcap(cuda, cas
 
 
 def test_flash_bwd_repeats_bit_for_bit(cuda):
-    for dtype in (torch.bfloat16, torch.float32):
-        args, kw = _bwd_inputs(cuda, BWD_CASES[4], dtype, seed=1)
-        runs = [flash_attention_bwd_cuda(*args, **kw) for _ in range(2)]
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(*runs))
+    for case in (BWD_CASES[4], BWD_CASES[7]):   # D 128 GQA, D 256 MQA
+        for dtype in (torch.bfloat16, torch.float32):
+            args, kw = _bwd_inputs(cuda, case, dtype, seed=1)
+            runs = [flash_attention_bwd_cuda(*args, **kw) for _ in range(2)]
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(*runs)), (case, dtype)
 
 
 def test_flash_attention_under_autograd_launches_the_backward(cuda):

@@ -36,6 +36,7 @@ from repro.kernels import ref as jref
 from repro.nn import attention as jattn
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import check_bwd_faults
+from _torch_flash_data import THREE, tf32_product
 
 # (B, S, Skv, H, Hkv, D, causal, window, softcap)
 CASES = {
@@ -174,7 +175,7 @@ def test_bwd_tolerance_holds_the_plain_version_against_the_exact_answer(dtype):
         assert float(b.max()) < (0.05 if dtype == "float32" else 0.1) * float(e.abs().max())
 
 
-# The bf16 kernel's arithmetic, and the faults its card check must catch.
+# The kernels' arithmetic, and the faults their card check must catch.
 # (B, S, Skv, H, Hkv, D, masks, q and k's scale): the training path's causal
 # GQA at D 128, a softcap whose logits reach the cap, recurrentgemma's MQA at
 # D 256 under a window, and the unmasked cross layer with a ragged Skv
@@ -184,67 +185,105 @@ EMU_CASES = {
     "window_mqa": (1, 300, 300, 4, 1, 256, dict(causal=True, window=100), 1.0),
     "cross": (1, 256, 201, 4, 2, 64, dict(causal=False), 1.0),
 }
-# what launch/check_bwd_faults.py plants in csrc/flash_attn_bwd.cu
+# what launch/check_bwd_faults.py plants in csrc/flash_attn_bwd.cu and
+# csrc/flash_attn_bwd_f32.cu
 FAULTS = tuple(check_bwd_faults.FAULTS)
 
 
-def _emu_inputs(case):
+def _emu_inputs(case, dtype=torch.bfloat16):
     b, s, skv, h, hkv, d, kw, mag = EMU_CASES[case]
     g_ = torch.Generator().manual_seed(7)
-    q = (mag * torch.randn(b, s, h, d, generator=g_)).bfloat16()
-    k = (mag * torch.randn(b, skv, hkv, d, generator=g_)).bfloat16()
-    v = torch.randn(b, skv, hkv, d, generator=g_).bfloat16()
-    do = torch.randn(b, s, h, d, generator=g_).bfloat16()
+    q = (mag * torch.randn(b, s, h, d, generator=g_)).to(dtype)
+    k = (mag * torch.randn(b, skv, hkv, d, generator=g_)).to(dtype)
+    v = torch.randn(b, skv, hkv, d, generator=g_).to(dtype)
+    do = torch.randn(b, s, h, d, generator=g_).to(dtype)
     o, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     return (q, k, v, o, lse, do), kw
 
 
-def _bf16_kernel(q, k, v, o, lse, do, fault=None, **kw):
-    """The bf16 backward kernel's arithmetic on the host: P and dS in fp32,
-    each rounded to bf16 before its products, fp32 sums, the outputs
-    rounded to bf16 (``csrc/flash_attn_bwd.cu``: ``dq_wg_kernel`` and
-    ``dkdv_wg_kernel`` at D 64 and 128, ``tc_p_ds`` at D 32 and 256);
-    ``fault`` makes the mistake that ``check_bwd_faults.FAULTS`` of that
-    name plants: dQ's key tiles and dK/dV's key blocks are 128 keys at D 64
-    and 128 and 64 at D 32 and 256."""
+def _tiles(dtype, d):
+    """(keys of dQ's key tile, keys of dK/dV's key block) of the kernels
+    that run at ``dtype`` and head dim ``d``: the tiles that
+    ``check_bwd_faults``' tile faults leave out. bf16 (wgmma): 128 and 128,
+    64 and 64 at D 256; fp32 in 3xTF32 (D 32-128): 32 and 64; fp32 on FMAs
+    (D 256): 32 and 32."""
+    if dtype == torch.bfloat16:
+        return (64, 64) if d == 256 else (128, 128)
+    return (32, 32) if d == 256 else (32, 64)
+
+
+def _kernel(q, k, v, o, lse, do, fault=None, **kw):
+    """The backward kernel's arithmetic on the host, for q's dtype: P and dS
+    in fp32 from the forward's lse and D_i = dO_i . o_i, fp32 sums, the
+    outputs rounded once to q's dtype. bf16 (``csrc/flash_attn_bwd.cu``): P
+    and dS rounded to bf16 before their products. fp32
+    (``csrc/flash_attn_bwd_f32.cu``): up to D 128 each of the five products
+    as three TF32 products of the split operands (hi.hi + hi.lo + lo.hi,
+    ``tf32_product``), S and dP among them; at D 256 in fp32 (the FMA
+    kernels). ``fault`` makes the mistake that ``check_bwd_faults.FAULTS``
+    of that name plants, over the kernels' tiles (``_tiles``)."""
     B, S, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     rep, scale = H // Hkv, D ** -0.5
-    t, th, mask, _ = ref._flash_logits(q, k, scale=scale, **{
-        "causal": True, "window": None, "softcap": None, **kw})
-    p = torch.where(mask, torch.exp(t - lse[..., None]), 0.0)
-    dof = do.float()
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 or D == 256:
+        mm = torch.einsum
+    else:
+        def mm(eq, a, b):
+            return tf32_product(eq, a, b, THREE)
+    kw = {"causal": True, "window": None, "softcap": None, **kw}
+    qf, dof = q.float(), do.float()
     k_r, v_r = (x.float().repeat_interleave(rep, dim=2) for x in (k, v))
+    s = mm("bqhd,bkhd->bhqk", qf, k_r) * scale
+    th = None
+    if kw["softcap"]:
+        th = torch.tanh(s / kw["softcap"])
+        s = kw["softcap"] * th
+    _, _, mask, _ = ref._flash_logits(q, k, scale=scale, **kw)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
     delta = torch.einsum("bqhd,bqhd->bhq", dof, o.float())
     if fault == "no_delta":
         delta = torch.zeros_like(delta)
-    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, v_r) - delta[..., None])
+    ds = p * (mm("bqhd,bkhd->bhqk", dof, v_r) - delta[..., None])
     if th is not None and fault != "no_softcap_factor":
         ds = ds * (1 - th * th)
-    p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    if bf16:
+        p, ds = p.bfloat16().float(), ds.bfloat16().float()
     ds_q = ds.clone()
-    bt = 128 if D in (64, 128) else 64   # the wgmma kernels' tiles, else mma.sync's
+    dq_tile, kv_block = _tiles(q.dtype, D)
     if fault == "dq_skips_key_tile":
-        ds_q[..., bt:2 * bt] = 0
-    dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds_q, k_r)
+        ds_q[..., dq_tile:2 * dq_tile] = 0
+    dq = scale * mm("bhqk,bkhd->bqhd", ds_q, k_r)
     if fault == "dkdv_one_head":   # each kv head sums its first query head only
         first = (torch.arange(H) % rep == 0)[None, :, None, None]
         p, ds = p * first, ds * first
-    dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = scale * mm("bhqk,bqhd->bkhd", ds, qf)
+    dv = mm("bhqk,bqhd->bkhd", p, dof)
     dk, dv = (x.reshape(B, Skv, Hkv, rep, D).sum(3) for x in (dk, dv))
     if fault == "dkdv_skips_key_tile":
-        dk[:, bt:2 * bt] = 0
-        dv[:, bt:2 * bt] = 0
-    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+        dk[:, kv_block:2 * kv_block] = 0
+        dv[:, kv_block:2 * kv_block] = 0
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-def _worst(case, fault):
-    (q, k, v, o, lse, do), kw = _emu_inputs(case)
-    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
-    got = _bf16_kernel(q, k, v, o, lse, do, fault=fault, **kw)
-    errs = ref.flash_attention_bwd_errors(got, want, q, k, v, o, lse, do, **kw)
+def _worst(case, fault, dtype=torch.bfloat16):
+    """(worst err/tol, worst norm err/limit) of the emulated kernel under
+    ``flash_attention_bwd_tol``: bf16 against the plain version in fp32,
+    fp32 against the exact answer (the plain version in fp64)."""
+    args, kw = _emu_inputs(case, dtype)
+    if dtype == torch.float32:
+        want = ref.flash_attention_bwd_ref(*(x.double() for x in args), **kw)
+    else:
+        want = ref.flash_attention_bwd_ref(*args, **kw)
+    got = _kernel(*args, fault=fault, **kw)
+    errs = ref.flash_attention_bwd_errors(got, want, *args, **kw)
     return (max(e["err_over_tol"] for e in errs), max(e["norm_over_limit"] for e in errs))
+
+
+def _faults_by_case():
+    return [(case, fault) for case in EMU_CASES for fault in FAULTS
+            # without a softcap the factor is 1, and leaving it out changes nothing
+            if fault != "no_softcap_factor" or EMU_CASES[case][6].get("softcap")]
 
 
 @pytest.mark.parametrize("case", list(EMU_CASES))
@@ -256,10 +295,7 @@ def test_bwd_tolerance_holds_the_bf16_kernels_roundings(case):
     assert tol_ratio <= 1 and norm_ratio <= 0.5, (tol_ratio, norm_ratio)
 
 
-@pytest.mark.parametrize("case,fault", [
-    (case, fault) for case in EMU_CASES for fault in FAULTS
-    # without a softcap the factor is 1, and leaving it out changes nothing
-    if fault != "no_softcap_factor" or EMU_CASES[case][6].get("softcap")])
+@pytest.mark.parametrize("case,fault", _faults_by_case())
 def test_bwd_tolerance_catches_planted_faults(case, fault):
     """Each fault that ``launch/check_bwd_faults.py`` plants in the kernel
     fails the check, elementwise and on the norm, several times over."""
@@ -267,10 +303,30 @@ def test_bwd_tolerance_catches_planted_faults(case, fault):
     assert tol_ratio > 4 and norm_ratio > 4, (tol_ratio, norm_ratio)
 
 
+@pytest.mark.parametrize("case", list(EMU_CASES))
+def test_bwd_tolerance_holds_the_3xtf32_kernels_arithmetic(case):
+    """The fp32 kernels' arithmetic (3xTF32 up to D 128, fp32 at D 256)
+    stays within the fp32 ``flash_attention_bwd_tol`` against the exact
+    answer, elementwise and on each output's norm, with room."""
+    tol_ratio, norm_ratio = _worst(case, None, torch.float32)
+    assert tol_ratio <= 0.5 and norm_ratio <= 0.5, (tol_ratio, norm_ratio)
+
+
+@pytest.mark.parametrize("case,fault", _faults_by_case())
+def test_f32_bwd_tolerance_catches_planted_faults(case, fault):
+    """Each fault that ``launch/check_bwd_faults.py`` plants in the fp32
+    kernels fails the fp32 check, elementwise and on the norm, several
+    times over."""
+    tol_ratio, norm_ratio = _worst(case, fault, torch.float32)
+    assert tol_ratio > 4 and norm_ratio > 4, (tol_ratio, norm_ratio)
+
+
 def test_planted_faults_match_the_kernel_source():
     """Each fault of ``check_bwd_faults`` matches ``csrc/flash_attn_bwd.cu``
-    as often as it says (once in each kernel pair it plants into: wgmma,
-    mma.sync, fp32), so the card run plants every fault it names."""
-    src = (check_bwd_faults.PKG / "csrc" / "flash_attn_bwd.cu").read_text()
+    and ``csrc/flash_attn_bwd_f32.cu`` as often as it says (once in each
+    kernel pair it plants into: bf16 on wgmma, fp32 in 3xTF32, fp32 on
+    FMAs), so the card run plants every fault it names in both files."""
+    src = check_bwd_faults.sources()
     for name, (_, subs) in check_bwd_faults.FAULTS.items():
-        assert check_bwd_faults.plant(src, subs) != src, name
+        planted = check_bwd_faults.plant(src, subs)
+        assert all(planted[f] != src[f] for f in src), name
