@@ -90,7 +90,15 @@
    non-finite loss, a skipped step, or launches other than 28 flash
    forwards and 28 flash backwards, one ``ls_xent`` forward and backward
    and two LARS a step; prints each stage's step ms, tokens/s, the peak
-   device memory and the sync's layout;
+   device memory and the sync's layout; then trains it again with
+   ``remat`` (each layer recomputed in backward), 3 steps of 4 x 2048
+   tokens and then 3 of ``LM_REMAT_MAX_BATCH`` x 2048, the largest batch
+   up to which ``python -m repro_torch.launch.remat_batch`` found every
+   batch to fit, each a
+   plain stage of its own run (running out of memory fails the script),
+   which must launch the flash forward twice an attention layer (once more
+   in backward) and the rest as before, and prints step ms, tokens/s and
+   peak device memory beside the run without ``remat``;
 9. runs a tiny ResNet two steps (fp32 comm), and the smoke configs of all
    ten archs (fp32, so the fp32 flash kernel) through ``generate``, on the
    card and on the CPU from the same weights and inputs (the VLM's from one
@@ -106,7 +114,13 @@
    or cross layer on the card; then saves each smoke config's train state
    on the card in the reference's stacked format (``groups=``) and
    restores it, which must give params and momentum back bit for bit;
-10. destroys the process group, and prints one ``{"kernels": [...]}``
+10. runs the dry run (``python -m repro_torch.launch.dryrun``, in
+   subprocesses without the card: torch's ``fake`` process group, meta
+   tensors) for Qwen3-1.7B's ``train_4k`` on the 16 x 16 mesh (256 ranks,
+   remat, the manual torus sync) and llama3-405b's ``decode_32k`` on the
+   2 x 16 x 16 mesh (512 ranks, FSDP), fails if either exits non-zero, and
+   prints each one's exchanges, collective bytes, FLOPs and wall seconds;
+11. destroys the process group, and prints one ``{"kernels": [...]}``
    line, the card line again, and as the last line ``{"ok": true,
    "device": {...}}``.
 
@@ -168,6 +182,17 @@ SMOKE_STEP_TOL = (1e-5, 1e-5, 1e-4)   # (loss rtol, params atol, params rtol)
 # the full-width LM training phase: Qwen3-1.7B, two batch stages of
 # LM_STAGE_STEPS steps, per-step sequences of LM_SEQ tokens
 LM_ARCH, LM_SEQ, LM_STAGES, LM_STAGE_STEPS = "qwen3-1.7b", 2048, (2, 4), 3
+# the same with remat: 4 x 2048, then the largest batch up to which every
+# batch fits the card under the default allocator (python -m
+# repro_torch.launch.remat_batch --batches 9,10,11,12 on an H100 80GB HBM3,
+# each size in a fresh process: 9 and 11 run, 10 and 12 run out of memory
+# where the ls_xent backward asks for its fp32 logit gradient with 22-28
+# GiB reserved but unallocated: fragmentation, not capacity; PERF.md)
+LM_REMAT_MAX_BATCH = 9
+# the dry run's combinations: the manual torus sync at world 256 with remat,
+# and an FSDP arch at world 512
+DRYRUN_COMBOS = (("qwen3-1.7b", "train_4k", ()),
+                 ("llama3-405b", "decode_32k", ("--multi-pod",)))
 # the full-width serve phases: dense attention, the MoE MLP, the SSD mixer,
 # the RG-LRU hybrid, the VLM's cross-attention
 SERVE_ARCHS = ("qwen3-1.7b", "granite-moe-3b-a800m", "mamba2-2.7b", "recurrentgemma-9b",
@@ -335,22 +360,26 @@ def check_flash_bwd(torch, gen) -> dict:
     return {"bf16": tuple(worst[torch.bfloat16]), "fp32": tuple(worst[torch.float32])}
 
 
-def train_lm(torch, dev, grid, card: str) -> dict:
+def train_lm(torch, dev, grid, card: str, stages=LM_STAGES, remat: bool = False) -> dict:
     """Qwen3-1.7B at full width through ``repro_torch.launch.train.build`` on
-    the world-1 NCCL grid: two batch stages (``LM_STAGES`` sequences of
-    ``LM_SEQ`` tokens, ``LM_STAGE_STEPS`` steps each), schedule B,
+    the world-1 NCCL grid: batch stages of ``stages`` sequences of
+    ``LM_SEQ`` tokens, ``LM_STAGE_STEPS`` steps each, schedule B,
     smoothing 0.1, torus2d ``fuse=False`` bf16, LARS over the reference's
-    13 stacked leaves. Fails on a non-finite loss, a skipped step, or a
-    step that does not launch the flash forward and backward once an
-    attention layer, ``ls_xent`` forward and backward once and LARS
-    twice."""
+    13 stacked leaves, ``remat`` as given. Fails on a non-finite loss, a
+    skipped step, or a step that does not launch the flash forward once an
+    attention layer (twice with ``remat``: again in backward) and the
+    backward once, ``ls_xent`` forward and backward once and LARS twice."""
+    import dataclasses
+
+    from repro_torch.configs import registry
     from repro_torch.core import grad_sync
     from repro_torch.kernels import ops
     from repro_torch.launch import profile_trainer
     from repro_torch.launch import train as launch_train
 
     t0 = time.perf_counter()
-    run = launch_train.build(LM_ARCH, seq=LM_SEQ, batch_stages=LM_STAGES, steps=None,
+    cfg = dataclasses.replace(registry.get(LM_ARCH), remat=remat)
+    run = launch_train.build(LM_ARCH, cfg=cfg, seq=LM_SEQ, batch_stages=stages, steps=None,
                              stage_steps=LM_STAGE_STEPS, device=dev, grid=grid, log_every=1)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -359,7 +388,8 @@ def train_lm(torch, dev, grid, card: str) -> dict:
     layout = grad_sync.bucket_layout(params, run.trainer.cfg.grad_sync, run.groups)
     per_leaf = sum(1 for b in layout if b["mode"] == "per_leaf")
     sync_bytes = sum(b["nbytes"] for b in layout)
-    print(f"train {LM_ARCH}: {n_params} parameters, {len(params)} port leaves in "
+    tag = f"{LM_ARCH}{' remat' if remat else ''}"
+    print(f"train {tag}: {n_params} parameters, {len(params)} port leaves in "
           f"{len(run.groups)} reference leaves (LARS groups); sync torus2d fuse=False bf16: "
           f"{len(layout)} exchanges ({per_leaf} per-leaf, {len(layout) - per_leaf} grouped), "
           f"{sync_bytes} B; init {init_s:.1f} s")
@@ -382,28 +412,28 @@ def train_lm(torch, dev, grid, card: str) -> dict:
               f"{1e3 * r['wall_s']:.2f}")
     steps = len(rows)
     if steps != plan.total_steps or state.step != plan.total_steps or \
-            [s.num_steps for s in plan.stages] != [LM_STAGE_STEPS] * len(LM_STAGES):
-        fail(f"{LM_ARCH}: ran {steps} steps, plan {[s.num_steps for s in plan.stages]}")
+            [s.num_steps for s in plan.stages] != [LM_STAGE_STEPS] * len(stages):
+        fail(f"{tag}: ran {steps} steps, plan {[s.num_steps for s in plan.stages]}")
     for r in rows:
         if not (r["loss"] == r["loss"] and abs(r["loss"]) < float("inf")) or r["skipped"]:
-            fail(f"{LM_ARCH} step {r['step']}: loss {r['loss']}, skipped {r['skipped']}")
+            fail(f"{tag} step {r['step']}: loss {r['loss']}, skipped {r['skipped']}")
     want = {"lars_update": 2 * steps, "ls_xent_fwd": steps, "ls_xent_bwd": steps,
-            "flash_attn": n_attn * steps, "flash_attn_f32": 0,
+            "flash_attn": (2 if remat else 1) * n_attn * steps, "flash_attn_f32": 0,
             "flash_attn_bwd": n_attn * steps, "flash_attn_bwd_f32": 0}
     if counts != want:
-        fail(f"{LM_ARCH} training launched {counts}, want {want}")
-    stages = profile_trainer.stage_medians(plan, rows)
-    for st in stages:
+        fail(f"{tag} training launched {counts}, want {want}")
+    medians = profile_trainer.stage_medians(plan, rows)
+    for st in medians:
         st["tokens_per_s"] = st["global_batch"] * LM_SEQ / (st["steady_median_ms"] / 1e3)
-        print(f"train {LM_ARCH} stage {st['global_batch']} x {LM_SEQ} tokens: step ms "
+        print(f"train {tag} stage {st['global_batch']} x {LM_SEQ} tokens: step ms "
               f"{[round(w, 2) for w in st['step_ms']]}, steady median (first step excluded) "
               f"{st['steady_median_ms']:.2f} ms, {st['tokens_per_s']:.0f} tokens/s ({card})")
-    print(f"train {LM_ARCH}: {steps} steps in {run_s:.1f} s, launches {counts}, peak device "
+    print(f"train {tag}: {steps} steps in {run_s:.1f} s, launches {counts}, peak device "
           f"memory {peak / 2**30:.2f} GiB ({card})")
     del run, state, params, history
     gc.collect()
     torch.cuda.empty_cache()
-    return {"counts": counts, "stages": stages, "peak_gib": peak / 2**30,
+    return {"counts": counts, "stages": medians, "peak_gib": peak / 2**30, "remat": remat,
             "exchanges": len(layout), "per_leaf_exchanges": per_leaf,
             "sync_bytes": sync_bytes, "port_leaves": 310, "groups": 13,
             "seq": LM_SEQ, "init_s": init_s, "run_s": run_s}
@@ -926,6 +956,42 @@ def supervised(torch, grid, model, data_fn, loss_fn, plan, sync, card: str) -> d
     return out
 
 
+def dryrun_phase() -> dict:
+    """``DRYRUN_COMBOS`` through ``python -m repro_torch.launch.dryrun``, one
+    subprocess each (the fake process group cannot share a process with the
+    NCCL one), the card hidden from them: meta tensors, no kernel. Fails on
+    a non-zero exit; returns and prints each one's numbers."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for arch, shape, flags in DRYRUN_COMBOS:
+            t0 = time.perf_counter()
+            done = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--shape", shape, "--out", d, *flags],
+                env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            if done.returncode != 0:
+                fail(f"dry run {arch} {shape} exited {done.returncode}:\n{done.stderr[-3000:]}")
+            mesh = "pod2x16x16" if "--multi-pod" in flags else "pod16x16"
+            r = json.loads((Path(d) / f"{arch}__{shape}__{mesh}.json").read_text())
+            audit = r["bucket_audit"] or {}
+            out[f"{arch} {shape} {mesh}"] = {
+                "chips": r["chips"], "exchanges": audit.get("num_exchanges"),
+                "expected_exchanges": r["expected_exchanges"],
+                "collective_bytes": r["collectives"]["total_bytes"],
+                "collective_count": r["collectives"]["total_count"],
+                "flops": r["cost"]["flops"], "gathered": r["gathered"],
+                "build_s": r["lower_s"], "run_s": r["run_s"], "wall_s": wall}
+            print(f"dry run {arch} {shape} on {mesh} ({r['chips']} ranks, fake group, meta "
+                  f"tensors): exchanges {audit.get('num_exchanges')} (schedule "
+                  f"{r['expected_exchanges']}), {r['collectives']['total_count']} collectives, "
+                  f"{r['collectives']['total_bytes']} B a rank, {r['cost']['flops']:.4e} FLOPs "
+                  f"a rank, held whole {r['gathered']}, build {r['lower_s']} s, step "
+                  f"{r['run_s']} s, wall {wall:.1f} s (host clock)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1176,6 +1242,18 @@ def run(torch, store_dir: str) -> int:
     t0 = time.perf_counter()
     lm = train_lm(torch, dev, grid, card)
     print(f"phase train {LM_ARCH}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lm_remat = [train_lm(torch, dev, grid, card, stages=(b,), remat=True)
+                for b in (4, LM_REMAT_MAX_BATCH)]
+    at4 = next(st for st in lm["stages"] if st["global_batch"] == 4)
+    for r in lm_remat:
+        st = r["stages"][0]
+        print(f"train {LM_ARCH} remat at {st['global_batch']} x {LM_SEQ}: "
+              f"{st['steady_median_ms']:.2f} ms a step, {st['tokens_per_s']:.0f} tokens/s, "
+              f"peak {r['peak_gib']:.2f} GiB; without remat at 4 x {LM_SEQ}: "
+              f"{at4['steady_median_ms']:.2f} ms, {at4['tokens_per_s']:.0f} tokens/s, peak "
+              f"{lm['peak_gib']:.2f} GiB (the run's, both stages) ({card})")
+    print(f"phase train {LM_ARCH} remat: {time.perf_counter() - t0:.1f} s")
 
     # -- small input: the card's path against the host's ----------------------
     tiny = resnet.ResNetConfig.tiny(compute_dtype=torch.float32)
@@ -1229,6 +1307,9 @@ def run(torch, store_dir: str) -> int:
     t0 = time.perf_counter()
     checkpoint_round_trip(torch)
     print(f"phase smoke checkpoints, stacked, on the card: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dry = dryrun_phase()
+    print(f"phase dry run: {time.perf_counter() - t0:.1f} s")
 
     # -- report ---------------------------------------------------------------
     sources = {
@@ -1265,11 +1346,16 @@ def run(torch, store_dir: str) -> int:
     # five full-width archs in bf16, or the fp32 smoke configs' prefills
     by_path = {name: {"resnet50": counts[name], "supervised": sup["counts"][name]}
                for name in ("lars_update", "ls_xent_fwd", "ls_xent_bwd")}
+    remat_runs = {f"{LM_ARCH} training remat {r['stages'][0]['global_batch']} x {LM_SEQ}": r
+                  for r in lm_remat}
     for name in ("lars_update", "ls_xent_fwd", "ls_xent_bwd"):
         by_path[name][f"{LM_ARCH} training"] = lm["counts"][name]
+        by_path[name].update((k, r["counts"][name]) for k, r in remat_runs.items())
     by_path["flash_attn"] = {arch: r["counts"]["flash_attn"] for arch, r in served.items()}
     by_path["flash_attn"][f"{LM_ARCH} training"] = lm["counts"]["flash_attn"]
     by_path["flash_attn_bwd"] = {f"{LM_ARCH} training": lm["counts"]["flash_attn_bwd"]}
+    for name in ("flash_attn", "flash_attn_bwd"):
+        by_path[name].update((k, r["counts"][name]) for k, r in remat_runs.items())
     launches = {**{name: sum(v.values()) for name, v in by_path.items()},
                 "flash_attn_f32": f32_launches, "flash_attn_bwd_f32": bwd_f32_launches}
     # the flash checks' worst err/tol over their shapes, by kernel
@@ -1304,8 +1390,11 @@ def run(torch, store_dir: str) -> int:
                                 for arch, r in served.items()}, "card": card}))
     print(json.dumps({"supervised": {k: v for k, v in sup.items() if k != "counts"},
                       "card": card}))
-    print(json.dumps({"train_lm": {LM_ARCH: {k: v for k, v in lm.items() if k != "counts"}},
+    print(json.dumps({"train_lm": {LM_ARCH: {k: v for k, v in lm.items() if k != "counts"},
+                                   **{k: {x: v for x, v in r.items() if x != "counts"}
+                                      for k, r in remat_runs.items()}},
                       "card": card}))
+    print(json.dumps({"dryrun": dry, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

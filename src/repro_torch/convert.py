@@ -118,6 +118,24 @@ def is_stacked(path: str) -> bool:
     return path.startswith("blocks/")
 
 
+def reference_name(name: str, cfg=None) -> tuple[str, int]:
+    """(the name of a port leaf in the reference's tree, its place b in a
+    stacked leaf): ``layers.<i>.<rest>`` is ``prefix.<i>.<rest>`` for a
+    prefix layer, else ``blocks.<j>.<rest>`` at b, with ``i = n_prefix + b
+    * len(pattern) + j``; any other name, or any name without a
+    transformer's ``cfg``, is itself at 0. Case is kept (mamba2's
+    ``A_log``)."""
+    head, _, rest = name.partition(".")
+    if cfg is None or head != "layers":
+        return name, 0
+    idx, _, rest = rest.partition(".")
+    i = int(idx)
+    if i < cfg.n_prefix:
+        return f"prefix.{i}.{rest}", 0
+    b, j = divmod(i - cfg.n_prefix, len(cfg.pattern))
+    return f"blocks.{j}.{rest}", b
+
+
 def leaf_groups(names, cfg=None) -> tuple[tuple[str, tuple[str, ...]], ...]:
     """The leaves of the reference's tree that the port's ``names`` form, in
     ``jax.tree_util`` flatten order: ``(JAX path, port names stacked into
@@ -134,16 +152,7 @@ def leaf_groups(names, cfg=None) -> tuple[tuple[str, tuple[str, ...]], ...]:
     """
     stacked: dict[str, list[tuple[int, str]]] = {}
     for name in names:
-        jname, b = name, 0
-        head, _, rest = name.partition(".")
-        if cfg is not None and head == "layers":
-            idx, _, rest = rest.partition(".")
-            i = int(idx)
-            if i < cfg.n_prefix:
-                jname = f"prefix.{i}.{rest}"
-            else:
-                b, j = divmod(i - cfg.n_prefix, len(cfg.pattern))
-                jname = f"blocks.{j}.{rest}"
+        jname, b = reference_name(name, cfg)
         stacked.setdefault(jname, []).append((b, name))
     return tuple((jax_path(jname), tuple(n for _, n in sorted(stacked[jname])))
                  for jname in jax_order(stacked))

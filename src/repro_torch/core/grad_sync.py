@@ -62,6 +62,7 @@ from typing import Any, NamedTuple, Sequence
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch import convert
 from repro_torch.core import collectives
@@ -343,19 +344,26 @@ def sync_tree(grads: dict[str, torch.Tensor], grid: TorusGrid,
     """The mean of the gradients over the grid's ranks; every rank calls it
     with the same names and shapes. ``groups``: the reference's stacked
     leaves (module docstring). Returns a new dict in the input's key
-    order, each leaf in its own shape and dtype."""
+    order, each leaf in its own shape and dtype.
+
+    A gradient may be a DTensor sharded over other mesh dims than the
+    grid's (the dry run's tensor-parallel gradients): the plan follows its
+    global shape, as the reference's inside a ``shard_map`` whose model
+    axis is automatic, and its local shard goes over the wire and comes
+    back as a DTensor placed as it was."""
     sched = _schedule(_signature(grads), cfg, groups)
+    local = {n: t.to_local() if isinstance(t, DTensor) else t for n, t in grads.items()}
     mult = grid.size
     exchanges = []
     for ex in sched.exchanges:
         if ex.mode == "per_leaf":
             leaf = sched.leaves[ex.leaves[0]]
             if leaf.stacked:   # the reference's stacked leaf: a new tensor
-                buf = torch.stack([grads[n] for n in leaf.names]).to(ex.dtype)
+                buf = torch.stack([local[n] for n in leaf.names]).to(ex.dtype)
             else:              # a copy: the input leaf may be in the comm dtype
-                buf = grads[leaf.names[0]].to(ex.dtype, copy=True)
+                buf = local[leaf.names[0]].to(ex.dtype, copy=True)
         else:
-            buf = torch.cat([grads[n].reshape(-1) for k in ex.leaves
+            buf = torch.cat([local[n].reshape(-1) for k in ex.leaves
                              for n in sched.leaves[k].names]).to(ex.dtype)
         # in the comm dtype, times the scale rounded to it: keeps the
         # half-precision partial sums in range. A scale of 1 is left out.
@@ -369,19 +377,25 @@ def sync_tree(grads: dict[str, torch.Tensor], grid: TorusGrid,
     for ex, red in zip(sched.exchanges, collectives.run(exchanges)):
         if ex.mode == "per_leaf":
             leaf = sched.leaves[ex.leaves[0]]
-            red = red[:leaf.shape[0]].to(leaf.dtype)
+            rows = len(leaf.names) if leaf.stacked else local[leaf.names[0]].shape[0]
+            red = red[:rows].to(leaf.dtype)
             out.update(zip(leaf.names, red.unbind(0) if leaf.stacked else (red,)))
             continue
-        red = red.reshape(-1)[:sum(ex.sizes)]
+        sizes = tuple(sum(local[n].numel() for n in sched.leaves[k].names)
+                      for k in ex.leaves)
+        red = red.reshape(-1)[:sum(sizes)]
         if ex.out_dtype is not None:   # one cast a bucket, not one a leaf
             red = red.to(ex.out_dtype)
-        for k, part in zip(ex.leaves, torch.split(red, ex.sizes)):
+        for k, part in zip(ex.leaves, torch.split(red, sizes)):
             leaf = sched.leaves[k]
-            part = part.view(leaf.shape)
+            shape = local[leaf.names[0]].shape
+            part = part.view((len(leaf.names), *shape) if leaf.stacked else shape)
             if ex.out_dtype is None:
                 part = part.to(leaf.dtype)
             out.update(zip(leaf.names, part.unbind(0) if leaf.stacked else (part,)))
-    return {name: out[name] for name in grads}
+    return {name: DTensor.from_local(out[name], g.device_mesh, g.placements, run_check=False,
+                                     shape=g.shape, stride=g.stride())
+            if isinstance(g, DTensor) else out[name] for name, g in grads.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -404,7 +418,7 @@ def fallback_chain(strategy: str) -> tuple[str, ...]:
 
 
 def _strategy_viable(strategy: str, lowering: str, grid: TorusGrid,
-                     down_axes=()) -> tuple[bool, str]:
+                     down_axes=(), probe: bool = True) -> tuple[bool, str]:
     """(viable, reason). ``reason`` explains the rejection when not viable.
 
     1. *Down axes* (``"dx"``, ``"dy"``): torus2d / hierarchical decompose
@@ -412,12 +426,14 @@ def _strategy_viable(strategy: str, lowering: str, grid: TorusGrid,
        a down axis kills them; the flat strategies survive with the
        ``xla`` lowering, while the ring lowering pins neighbour links.
     2. The reference's partial-manual check is JAX's own; nothing here.
-    3. *Probe*: one tiny all-reduce of ones over the real groups, which
-       must sum to the world size. Every rank runs the same probes, and the
-       verdict is the world's: a rank that read a wrong sum rejects the
-       strategy on every rank, so all of them pick the same one. A probe
-       that raises (a broken group, a timeout) ends the run: a process
-       group is not to be trusted after a failed collective.
+    3. *Probe* (``probe=True``): one tiny all-reduce of ones over the real
+       groups, which must sum to the world size. Every rank runs the same
+       probes, and the verdict is the world's: a rank that read a wrong sum
+       rejects the strategy on every rank, so all of them pick the same
+       one. A probe that raises (a broken group, a timeout) ends the run: a
+       process group is not to be trusted after a failed collective. The
+       dry run passes ``probe=False``, as the reference's does: its fake
+       process group moves no data, so no sum comes back.
     """
     down = set(down_axes) & set(grid.axes)
     if down:
@@ -427,6 +443,8 @@ def _strategy_viable(strategy: str, lowering: str, grid: TorusGrid,
         if lowering == "ring":
             return False, (f"axis(es) {sorted(down)} down: explicit ppermute "
                            "ring pins dead neighbor links")
+    if not probe:
+        return True, ""
     ones = torch.ones(grid.size, device=grid.device)
     got = collectives.all_reduce(ones.clone(), grid, strategy, lowering)
     wrong = torch.tensor([0.0 if torch.equal(got, ones * grid.size) else 1.0],
@@ -468,8 +486,8 @@ def _resolve_bucket_bytes(cfg: GradSyncConfig, grid: TorusGrid, params_like,
 
 
 def resolve_sync_config(cfg: GradSyncConfig, grid: TorusGrid, down_axes=(),
-                        params_like=None, hw=None,
-                        context: str = "startup") -> tuple[GradSyncConfig, list[dict]]:
+                        params_like=None, hw=None, context: str = "startup",
+                        probe: bool = True) -> tuple[GradSyncConfig, list[dict]]:
     """Walk ``cfg.strategy``'s fallback chain; return the first viable
     config plus the rejection/downgrade events.
 
@@ -478,11 +496,12 @@ def resolve_sync_config(cfg: GradSyncConfig, grid: TorusGrid, down_axes=(),
     trainer's re-resolve after a permanent failure mid-run.
     ``bucket_bytes="auto"`` is resolved too, against ``params_like`` (the gradients' names and shapes;
     optional) and ``hw`` (an ``autotune.HardwareModel``, required for
-    ``"auto"``).
+    ``"auto"``). ``probe=False`` skips the probe all-reduce
+    (``_strategy_viable``).
     """
     events: list[dict] = []
     for strategy in fallback_chain(cfg.strategy):
-        ok, reason = _strategy_viable(strategy, cfg.lowering, grid, down_axes)
+        ok, reason = _strategy_viable(strategy, cfg.lowering, grid, down_axes, probe)
         if ok:
             if strategy != cfg.strategy:
                 events.append({"event": "grad_sync_downgrade", "from": cfg.strategy,

@@ -91,25 +91,48 @@ class TorusGrid:
         """(dy, dx) of a global rank."""
         return divmod(rank, self.x)
 
-    def build(self) -> "TorusGrid":
+    def build(self, members: Sequence[Sequence[int]] | None = None) -> "TorusGrid":
         """This grid with its process groups. Without an initialised
-        process group only the 1 x 1 grid exists, and it has no groups."""
+        process group only the 1 x 1 grid exists, and it has no groups.
+
+        ``members``: when the world splits into several grids of this shape
+        (the data-parallel ranks of each model coordinate of a mesh), their
+        rank lists, each ``x * y`` global ranks in row-major (dy, dx) order.
+        Every rank builds every grid's groups, in one order, as
+        ``torch.distributed.new_group`` requires, and keeps the grid that
+        holds it; ``world`` is then that grid's ranks. Default: one grid of
+        every rank, whose ``world`` is the process group's."""
         if not (dist.is_available() and dist.is_initialized()):
             if self.size != 1:
                 raise RuntimeError(f"a {self.y}x{self.x} grid needs torch.distributed "
                                    f"initialised with {self.size} ranks")
             return self
         world = dist.get_world_size()
-        if world != self.size:
-            raise ValueError(f"grid {self.y}x{self.x} has {self.size} ranks, the "
-                             f"process group {world}")
+        if members is None:
+            if world != self.size:
+                raise ValueError(f"grid {self.y}x{self.x} has {self.size} ranks, the "
+                                 f"process group {world}")
+            grids = [tuple(range(world))]
+        else:
+            grids = [tuple(int(r) for r in m) for m in members]
+            if any(len(g) != self.size for g in grids) or \
+                    sorted(r for g in grids for r in g) != list(range(world)):
+                raise ValueError(f"members must split the {world} ranks into grids of "
+                                 f"{self.y}x{self.x}")
         rank = dist.get_rank()
-        dy, dx = self.coords(rank)
-        rows = [tuple(r * self.x + c for c in range(self.x)) for r in range(self.y)]
-        cols = [tuple(r * self.x + c for r in range(self.y)) for c in range(self.x)]
-        # every rank creates every group, rows then columns, in one order
-        row_groups = [dist.new_group(list(ranks)) for ranks in rows]
-        col_groups = [dist.new_group(list(ranks)) for ranks in cols]
+        mine = None
+        for g in grids:
+            rows = [tuple(g[r * self.x + c] for c in range(self.x)) for r in range(self.y)]
+            cols = [tuple(g[r * self.x + c] for r in range(self.y)) for c in range(self.x)]
+            # every rank creates every group, rows then columns, in one order
+            row_groups = [dist.new_group(list(ranks)) for ranks in rows]
+            col_groups = [dist.new_group(list(ranks)) for ranks in cols]
+            whole = dist.group.WORLD if len(grids) == 1 else dist.new_group(list(g))
+            if rank in g:
+                mine = (g, rows, cols, row_groups, col_groups, whole)
+        g, rows, cols, row_groups, col_groups, whole = mine
+        index = g.index(rank)
+        dy, dx = self.coords(index)
         if dist.get_backend() == "nccl":
             device = torch.device("cuda", torch.cuda.current_device())
         else:
@@ -118,7 +141,7 @@ class TorusGrid:
             self, device=device,
             h=Ring(rows[dy], dx, row_groups[dy]),
             v=Ring(cols[dx], dy, col_groups[dx]),
-            world=Ring(tuple(range(world)), rank, dist.group.WORLD))
+            world=Ring(g, index, whole))
 
 
 def select_grid(dp_sizes: Sequence[int]) -> TorusGrid:

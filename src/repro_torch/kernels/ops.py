@@ -9,6 +9,7 @@ fallback. The first CUDA call builds the kernel library
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attn import (FlashAttention, check_every_row_attends,
@@ -17,6 +18,7 @@ from repro_torch.kernels.flash_attn import (FlashAttention, check_every_row_atte
                                             flash_attention_tc)
 from repro_torch.kernels.lars_update import lars_update_cuda
 from repro_torch.kernels.ls_xent import LSXent, ls_xent_bwd_cuda, ls_xent_fwd_cuda
+from repro_torch.utils import dtensor
 
 _WRAPPERS = {"lars_update": lars_update_cuda, "ls_xent_fwd": ls_xent_fwd_cuda,
              "ls_xent_bwd": ls_xent_bwd_cuda, "flash_attn": flash_attention_tc,
@@ -59,8 +61,13 @@ def ls_xent(logits: torch.Tensor, labels: torch.Tensor, *,
     logits: (..., V) fp32 or bf16; labels: (...) int32 or int64 -> (...) fp32.
     """
     batch_shape = logits.shape[:-1]
-    x = logits.reshape(-1, logits.shape[-1]).contiguous()
-    per = LSXent.apply(x, labels.reshape(-1), smoothing)
+    x = logits.reshape(-1, logits.shape[-1])
+    if isinstance(x, DTensor):   # the dry run: over the vocab shards, or whole rows
+        per = dtensor.ls_xent(x, labels.reshape(-1), smoothing)
+        if per is not None:
+            return per.reshape(batch_shape)
+        x = dtensor.unshard(x, -1)
+    per = LSXent.apply(x.contiguous(), labels.reshape(-1), smoothing)
     return per.reshape(batch_shape)
 
 
@@ -81,8 +88,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     if not q.is_cuda:
         check_every_row_attends(q.shape[1], k.shape[1], window)
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap, scale=scale)
+        # DTensors (the dry run, meta): each rank's sequences and query heads
+        return dtensor.headwise(
+            lambda q, k, v: ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                                    softcap=softcap, scale=scale), q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, softcap, scale)

@@ -5,7 +5,7 @@
         --device cpu --steps 3
     PYTHONPATH=src torchrun --nproc_per_node <ranks> -m repro_torch.launch.train \
         --arch qwen3-1.7b [--smoke] [--steps 20] [--sync torus2d] [--schedule B] \
-        [--batch-stages 2,4] [--device cpu]
+        [--batch-stages 2,4] [--remat] [--device cpu]
 
 The recipe is the reference's: 2D-torus gradient sync with ``fuse=False``
 and bf16 comm, LARS, label smoothing, schedule B, batch-size control over
@@ -13,6 +13,10 @@ and bf16 comm, LARS, label smoothing, schedule B, batch-size control over
 rank each, as the reference's; ``--stage-steps N`` instead gives each
 stage N steps), on ``SyntheticTokens``. ``--smoke`` takes the arch's
 reduced config; without it the full config, at its published widths.
+``--remat`` sets the config's ``remat``: each prefix layer and pattern
+block is recomputed in backward (``models/transformer.py:forward``). The
+reference's launcher has no such flag; its dry run sets ``remat`` for
+every train shape (``launch/dryrun.py:arch_for``).
 
 World and grid: under ``torchrun`` (``WORLD_SIZE`` set) every rank joins
 one process group (NCCL on cards, rank r on card ``LOCAL_RANK``; gloo with
@@ -20,8 +24,10 @@ one process group (NCCL on cards, rank r on card ``LOCAL_RANK``; gloo with
 (``core/topology.py``: the paper's factorization); without ``torchrun``
 one rank trains on the 1 x 1 grid. Each rank holds a whole replica of the
 model and trains on its rows of the global batch. The reference's full
-config instead builds a sharded production mesh (``repro/launch/mesh.py``,
-slice H of the port's roadmap); until that is ported the port replicates.
+config instead builds a sharded production mesh (``repro/launch/mesh.py``);
+the port's meshes and placements (``launch/mesh.py``) serve its dry run,
+and no run has yet sharded a model across cards, so this launcher
+replicates.
 
 The LARS groups and the sync's plan follow the reference's stacked leaves
 (``convert.leaf_groups``, learned once from the model's names and config).
@@ -154,6 +160,8 @@ def main(argv=None) -> int:
                     help="comma per-rank batch sizes, staged equally")
     ap.add_argument("--stage-steps", type=int, default=None,
                     help="steps a stage (default: one epoch of 512 sequences a rank)")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each prefix layer and pattern block in backward")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--device", default=None, help="cpu for gloo; default: the card")
     args = ap.parse_args(argv)
@@ -167,8 +175,9 @@ def main(argv=None) -> int:
                                 timeout=datetime.timedelta(minutes=5))
     try:
         grid = topology.world_grid()
-        run = build(args.arch, smoke=args.smoke, seq=args.seq, sync=args.sync,
-                    schedule=args.schedule, label_smoothing=args.label_smoothing,
+        cfg = registry.get_smoke(args.arch) if args.smoke else registry.get(args.arch)
+        run = build(args.arch, cfg=dataclasses.replace(cfg, remat=args.remat), seq=args.seq,
+                    sync=args.sync, schedule=args.schedule, label_smoothing=args.label_smoothing,
                     batch_stages=tuple(int(s) for s in args.batch_stages.split(",")),
                     steps=args.steps, stage_steps=args.stage_steps, device=dev, grid=grid,
                     checkpoint_dir=args.checkpoint_dir)

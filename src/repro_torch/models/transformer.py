@@ -30,6 +30,8 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.overrides import TorchFunctionMode
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import device as device_lib
 from repro_torch.nn import attention as A
@@ -72,10 +74,12 @@ class ArchConfig:
     ssm_chunk: int = 256
     ssm_unroll: bool = False
     moe_capacity_factor: float = 1.25
-    # The JAX model's attention chunking, remat and scan switches. The port
-    # keeps them so that a JAX config carries over field for field, and
+    # The JAX model's attention chunking and scan switches. The port keeps
+    # them so that a JAX config carries over field for field, and
     # ``n_prefix``/``n_blocks`` (which follow ``scan_blocks``) say how a JAX
     # param tree is stacked; its attention is the flash kernel at any length.
+    # ``remat`` recomputes each prefix layer and each pattern block in
+    # ``forward``'s backward, as the reference's ``jax.checkpoint`` does.
     q_chunk: int = 1024
     q_chunk_unroll: bool = False
     cross_kv_dim: int | None = None
@@ -258,9 +262,27 @@ def params_tree(flat: dict[str, torch.Tensor]) -> dict:
     return root
 
 
+class _OnMeta(TorchFunctionMode):
+    """Sends every factory call's ``device`` to meta: the layers' init code
+    names its generator's device, and a generator cannot be made on meta."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if "device" in kwargs:
+            kwargs = {**kwargs, "device": "meta"}
+        return func(*args, **kwargs)
+
+
 def init(cfg: ArchConfig, *, seed: int = 0, device=None) -> Transformer:
-    """A model with fresh fp32 weights drawn from ``seed`` on ``device``."""
-    gen = torch.Generator(device=device_lib.resolve(device))
+    """A model with fresh fp32 weights drawn from ``seed`` on ``device``.
+    On ``"meta"`` the parameters have their shapes and dtypes and no
+    values, and nothing is drawn or allocated: the counterpart of the
+    reference's ``jax.eval_shape(lambda: init(key, cfg))``."""
+    dev = device_lib.resolve(device)
+    if dev.type == "meta":
+        with torch.device("meta"), _OnMeta():
+            return Transformer(cfg, torch.Generator())
+    gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return Transformer(cfg, gen)
 
@@ -360,6 +382,24 @@ def _check_vision(cfg: ArchConfig, vision) -> None:
                          f"{cfg.vision_tokens}, {cfg.cross_kv_dim})")
 
 
+def _apply_layers(layers, kinds, x, aux_total, cfg: ArchConfig, vision):
+    for p, kind in zip(layers, kinds):
+        x, aux = _apply_layer(p, x, cfg, kind, vision)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
+
+
+def remat_units(cfg: ArchConfig) -> list[tuple[int, int]]:
+    """The layer ranges ``forward`` recomputes as one unit under
+    ``cfg.remat``: each of the ``n_prefix`` prefix layers, then each block
+    of ``len(pattern)`` consecutive layers (the reference's scanned body,
+    the order of ``convert.leaf_groups``)."""
+    n, base = len(cfg.pattern), cfg.n_prefix
+    return ([(i, i + 1) for i in range(base)]
+            + [(base + b * n, base + (b + 1) * n) for b in range(cfg.n_blocks)])
+
+
 def forward(params, tokens: torch.Tensor, cfg: ArchConfig, *, vision=None):
     """tokens: (B, S) int -> (logits (B, S, V) fp32, aux). aux is the MoE
     layers' load-balance loss summed in fp32, 0 without MoE layers.
@@ -368,15 +408,23 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig, *, vision=None):
     Differentiable on both devices: on the card the attention is the flash
     forward kernel, whose gradient is the backward kernel
     (``kernels/flash_attn.py:FlashAttention``); on the host its plain
-    version under autograd."""
+    version under autograd. With ``cfg.remat`` each unit of
+    ``remat_units`` runs under ``torch.utils.checkpoint`` (non-reentrant):
+    the forward keeps only each unit's input, and backward runs the unit
+    again before its gradient, the flash forward kernel included. The aux
+    loss is carried through the units, so the recompute does not add it
+    twice."""
     params = _as_tree(params)
     _check_vision(cfg, vision)
     x = _embed_in(params, cfg, tokens)
     aux_total = torch.zeros((), device=x.device)
-    for p, kind in zip(params["layers"], cfg.kinds()):
-        x, aux = _apply_layer(p, x, cfg, kind, vision)
-        if aux is not None:
-            aux_total = aux_total + aux
+    layers, kinds = params["layers"], cfg.kinds()
+    if not cfg.remat:
+        x, aux_total = _apply_layers(layers, kinds, x, aux_total, cfg, vision)
+        return _logits_out(params, cfg, x), aux_total
+    for a, b in remat_units(cfg):
+        x, aux_total = ckpt.checkpoint(_apply_layers, layers[a:b], kinds[a:b], x, aux_total,
+                                       cfg, vision, use_reentrant=False)
     return _logits_out(params, cfg, x), aux_total
 
 

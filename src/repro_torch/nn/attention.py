@@ -28,6 +28,7 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.nn import layers as L
+from repro_torch.utils import dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,11 +93,10 @@ def _project_qkv(p, x, cfg: AttnConfig, positions=None, kv_src=None):
     layer passes ``kv_src`` (B, Skv, cross_kv_dim), cast to x's dtype, and
     no positions: no RoPE on either side (the JAX package's
     ``_project_qkv`` with ``use_rope=False``)."""
-    B = x.shape[0]
     kv = x if kv_src is None else kv_src.to(x.dtype)
-    q = L.dense(x, p["q"]["kernel"]).reshape(B, -1, cfg.n_heads, cfg.head_dim)
-    k = L.dense(kv, p["k"]["kernel"]).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
-    v = L.dense(kv, p["v"]["kernel"]).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
+    q = dtensor.split_dim(L.dense(x, p["q"]["kernel"]), -1, cfg.n_heads, cfg.head_dim)
+    k = dtensor.split_dim(L.dense(kv, p["k"]["kernel"]), -1, cfg.n_kv_heads, cfg.head_dim)
+    v = dtensor.split_dim(L.dense(kv, p["v"]["kernel"]), -1, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = L.rmsnorm(q, p["q_norm"]["norm_scale"])
         k = L.rmsnorm(k, p["k_norm"]["norm_scale"])
@@ -116,22 +116,32 @@ def _sdpa(q, k, v, mask, cfg: AttnConfig):
 
     The logits come from an einsum in the promoted type of q and k (bf16 in
     bf16 compute) and go to fp32 for the masked softmax; its weights go back
-    to q's dtype before the product with v.
+    to q's dtype before the product with v. DTensors (the dry run): each
+    rank's sequences and query heads (``dtensor.headwise``).
     """
-    groups = cfg.n_heads // cfg.n_kv_heads
     B, Sq, H, D = q.shape
-    qg = q.reshape(B, Sq, cfg.n_kv_heads, groups, D)
+    out = dtensor.headwise(lambda q, k, v, mask: _sdpa_heads(q, k, v, mask, cfg.scale,
+                                                             cfg.attn_softcap), q, k, v, mask)
+    return out.reshape(B, Sq, H * D)
+
+
+def _sdpa_heads(q, k, v, mask, scale: float, softcap: float | None):
+    """``_sdpa`` over the heads given, (B, Sq, H, D) out; GQA groups from the
+    shapes."""
+    B, Sq, H, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, D)
     dt = torch.promote_types(q.dtype, k.dtype)
-    logits = torch.einsum("bqkgd,bskd->bkgqs", (qg * weak(cfg.scale, q.dtype)).to(dt),
+    logits = torch.einsum("bqkgd,bskd->bkgqs", (qg * weak(scale, q.dtype)).to(dt),
                           k.to(dt))
-    if cfg.attn_softcap:
-        c = weak(cfg.attn_softcap, dt)
+    if softcap:
+        c = weak(softcap, dt)
         logits = c * torch.tanh(logits / c)
     logits = torch.where(mask[:, None, None], logits.float(), NEG_INF)
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     dt = torch.promote_types(w.dtype, v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", w.to(dt), v.to(dt))
-    return out.reshape(B, Sq, H * D)
+    return out.reshape(B, Sq, H, D)
 
 
 def causal_mask(sq: int, skv: int, q_offset: int = 0, window: int | None = None,
@@ -152,10 +162,9 @@ def attend(p, q, k, v, cfg: AttnConfig, causal: bool = True) -> torch.Tensor:
     """Attention of projected q, k, v (causal and windowed as ``cfg`` says,
     or unmasked) and the output projection: the flash kernel on the card,
     its plain version on the host."""
-    B, S = q.shape[:2]
     out = ops.flash_attention(q, k, v, causal=causal, window=cfg.window,
                               softcap=cfg.attn_softcap, scale=cfg.scale)
-    return L.dense(out.reshape(B, S, -1), p["o"]["kernel"])
+    return L.dense(dtensor.merge_heads(out), p["o"]["kernel"])
 
 
 def self_attention(p, x, cfg: AttnConfig):
@@ -226,15 +235,18 @@ def kv_cache_layout(k: torch.Tensor, v: torch.Tensor, cache_len: int,
     ``cache_len`` positions rolled so that position t sits at slot
     t % cache_len."""
     S = k.shape[1]
-    if cache_len >= S:
-        pad = (0, 0, 0, 0, 0, cache_len - S)
-        k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
-    else:
-        start = S - cache_len
-        shift = start % cache_len
-        k = torch.roll(k[:, start:], shift, dims=1)
-        v = torch.roll(v[:, start:], shift, dims=1)
-    return {"k": k.to(dtype).contiguous(), "v": v.to(dtype).contiguous()}
+
+    def layout(t):
+        if cache_len >= S:
+            t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, cache_len - S))
+        else:
+            start = S - cache_len
+            t = torch.roll(t[:, start:], start % cache_len, dims=1)
+        return t.to(dtype).contiguous()
+    # DTensors (the dry run): each rank's rows; some versions have no rule
+    # for roll, or fail the pad
+    return {n: dtensor.batchwise(layout, t, what="kv cache layout: heads")
+            for n, t in (("k", k), ("v", v))}
 
 
 def prefill_kv_cache(p, x, cfg: AttnConfig, cache_len: int,

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.nn import init as winit
+from repro_torch.utils import dtensor
 
 
 def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -140,10 +141,11 @@ def layernorm_init(dim: int, device) -> nn.ParameterDict:
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last dim in fp32, output in x's dtype."""
-    xf = x.float()
+    xf = dtensor.unshard(x, -1).float()
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-    return ((xf - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+    return dtensor.grad_unsharded(((xf - mu) * torch.rsqrt(var + eps) * scale
+                                   + bias).to(x.dtype))
 
 
 def rmsnorm_init(dim: int, device) -> nn.ParameterDict:
@@ -153,10 +155,16 @@ def rmsnorm_init(dim: int, device) -> nn.ParameterDict:
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Gemma-style RMSNorm for every arch: the scale is stored as ``w`` and
-    applied as ``1 + w`` (zero init), fp32 inside, output in x's dtype."""
-    xf = x.float()
+    applied as ``1 + w`` (zero init), fp32 inside, output in x's dtype.
+
+    A DTensor (the dry run) is made whole along the normalised dim, its
+    pending sums reduced, and so is its gradient's on the way back:
+    DTensor would otherwise keep a sum pending through the scaling, or the
+    output sharded along d, and every matmul after (or, for the gradient,
+    before) the norm would gather its weight."""
+    xf = dtensor.unshard(x, -1).float()
     y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (y * (1.0 + scale)).to(x.dtype)
+    return dtensor.grad_unsharded((y * (1.0 + scale)).to(x.dtype))
 
 
 def embed(embedding: torch.Tensor, ids: torch.Tensor,

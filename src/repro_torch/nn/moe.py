@@ -36,6 +36,7 @@ from torch import nn
 
 from repro_torch.nn import init as winit
 from repro_torch.nn import layers as L
+from repro_torch.utils import dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +89,7 @@ def dispatch(topk_e: torch.Tensor, cap: int, n_experts: int):
     slot, dropped) where the pair was dropped. No boolean masks: a masked
     index would wait for the device to learn its size.
     """
+    topk_e = dtensor.whole(topk_e, "moe dispatch: routing")   # no rule for searchsorted
     T, k = topk_e.shape
     dev = topk_e.device
     flat_e = topk_e.reshape(T * k)
@@ -115,6 +117,8 @@ def combine(ye: torch.Tensor, slot_of: torch.Tensor, topk_e: torch.Tensor) -> to
     by ``slot_of`` and added one at a time by ascending expert, in ye's
     dtype (the reference's scatter order). Dropped pairs read a zero row."""
     d = ye.shape[-1]
+    # DTensor: experts unevenly sharded cannot flatten
+    ye = dtensor.unshard(ye, 0, what="moe combine: experts")
     rows = torch.cat([ye.reshape(-1, d), ye.new_zeros(1, d)])
     by_expert = torch.gather(slot_of, 1, torch.argsort(topk_e, dim=1))
     y = rows[by_expert[:, 0]]
@@ -133,8 +137,10 @@ def moe_apply(p, x: torch.Tensor, cfg: MoEConfig):
     slot_tok, slot_of = dispatch(topk_e, cap, cfg.n_experts)
     # the gate of each slot in x's dtype, 0 where empty (the reference's
     # gate_buf), and the dropped pairs' gates in the spare slot
-    slot_gate = torch.zeros(cfg.n_experts * cap + 1, dtype=x.dtype, device=x.device)
-    slot_gate[slot_of.reshape(-1)] = gate_vals.reshape(-1).to(x.dtype)
+    gates = dtensor.whole(gate_vals, "moe dispatch: gates").reshape(-1).to(x.dtype)
+    slot_gate = torch.zeros(cfg.n_experts * cap + 1, dtype=x.dtype, device=gates.device)
+    slot_gate[slot_of.reshape(-1)] = gates
+    slot_gate = dtensor.replicated_like(slot_gate, x)
     xe = torch.cat([xt, xt.new_zeros(1, d)])[slot_tok]              # (E, cap, d)
     ye = expert_ffn(p["experts"], xe, cfg.act)
     ye = ye * slot_gate[:-1].view(cfg.n_experts, cap, 1)

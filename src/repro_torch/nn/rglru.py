@@ -38,6 +38,7 @@ from torch import nn
 
 from repro_torch.nn import init as winit
 from repro_torch.nn import layers as L
+from repro_torch.utils import dtensor
 
 # positions a chunk of the scan; its levels run over (B, S/CHUNK, CHUNK, w)
 CHUNK = 16
@@ -80,7 +81,8 @@ def _gates(p, x: torch.Tensor, cfg: RGLRUConfig):
     xf = x.float()
     r = torch.sigmoid(xf @ p["rg_kernel"] + p["rg_bias"])
     i = torch.sigmoid(xf @ p["ig_kernel"] + p["ig_bias"])
-    a = torch.exp(cfg.c * r * F.logsigmoid(p["lambda_param"]))     # sigmoid(L)^(c r)
+    # sigmoid(L)^(c r)
+    a = torch.exp(cfg.c * r * dtensor.elementwise(F.logsigmoid, p["lambda_param"]))
     beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
     return a, beta * (i * xf)
 

@@ -38,6 +38,7 @@ from torch import nn
 
 from repro_torch.nn import init as winit
 from repro_torch.nn import layers as L
+from repro_torch.utils import dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,7 +166,9 @@ def ssd_apply(p, u: torch.Tensor, cfg: SSDConfig, state: dict | None = None,
     dt = _softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     xh = x.reshape(*x.shape[:2], H, P)
-    y, h = _ssd_chunked(xh, dt, A, B_, C, cfg, None if state is None else state["ssm"])
+    y, h = dtensor.batchwise(lambda xh, dt, B_, C, h0, A: _ssd_chunked(xh, dt, A, B_, C, cfg, h0),
+                             xh, dt, B_, C, None if state is None else state["ssm"],
+                             shared=(A,), what="ssd scan: heads")
     y = y + L.cast(p["D"], y.dtype)[:, None] * xh                   # skip
     y = y.reshape(*u.shape[:2], di)
     y = L.rmsnorm(y * F.silu(z), p["out_norm"]["norm_scale"])
@@ -184,6 +187,15 @@ def ssd_init_state(batch: int, cfg: SSDConfig, dtype=torch.float32, device=None)
     }
 
 
+def _ssd_step(xh, dt, b, c, h_prev, A):
+    """One token's recurrence: xh (B, H, P), dt (B, H), b/c (B, N), h_prev
+    (B, H, P, N) fp32 -> (y (B, H, P) fp32, h)."""
+    decay = torch.exp(dt * A)                                       # (B, H)
+    h = h_prev * decay[..., None, None] + torch.einsum(
+        "bn,bhp->bhpn", b.float(), dt[..., None] * xh.float())
+    return torch.einsum("bn,bhpn->bhp", c.float(), h), h
+
+
 def ssd_decode_step(p, u: torch.Tensor, state: dict, cfg: SSDConfig):
     """One-token recurrence. u: (B, 1, d_model). Returns (out, new state)."""
     di, N, H, P = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
@@ -192,11 +204,9 @@ def ssd_decode_step(p, u: torch.Tensor, state: dict, cfg: SSDConfig):
     x, B_, C = torch.split(xbc, [di, N, N], dim=-1)
     dt = _softplus(dt_raw.float() + p["dt_bias"])[:, 0]             # (B, H)
     A = -torch.exp(p["A_log"])
-    xh = x[:, 0].reshape(-1, H, P)                                  # (B, H, P)
-    decay = torch.exp(dt * A)                                       # (B, H)
-    h = state["ssm"] * decay[..., None, None] + torch.einsum(
-        "bn,bhp->bhpn", B_[:, 0].float(), dt[..., None] * xh.float())
-    y = torch.einsum("bn,bhpn->bhp", C[:, 0].float(), h)
+    xh = dtensor.split_dim(x[:, 0], -1, H, P)                      # (B, H, P)
+    y, h = dtensor.batchwise(_ssd_step, xh, dt, B_[:, 0], C[:, 0], state["ssm"], shared=(A,),
+                             what="ssd step: heads")
     y = y.to(u.dtype) + L.cast(p["D"], u.dtype)[:, None] * xh
     y = y.reshape(-1, 1, di)
     y = L.rmsnorm(y * F.silu(z), p["out_norm"]["norm_scale"])

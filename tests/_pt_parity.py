@@ -308,3 +308,39 @@ def lm_trainer_body(rank: int, world: int, sizes, arch: str, params, seq: int,
                 for h in history if h["kind"] == "metric"]
         out[key] = (rows, {k: _np(v) for k, v in state.params.items()})
     return out
+
+
+def dtensor_shards_body(rank: int, world: int, attn_cases, logits, labels, smoothing) -> dict:
+    """``utils/dtensor.py``'s shard-wise ops on a 1-D ``model`` mesh of the
+    world's gloo ranks, from whole inputs: ``headwise`` over the plain
+    attention for each case of ``attn_cases`` ({name: (q, k, v, cotangent)},
+    q's heads sharded, k and v's sharded where they divide, else whole) and
+    ``ls_xent`` over vocab-sharded ``logits``. Returns each output and the
+    gradients of its inputs (a cotangent's inner product), whole."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels import ref
+    from repro_torch.utils import dtensor
+
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("model",))
+    out = {}
+
+    def dist_leaf(a, placement):
+        return distribute_tensor(torch.from_numpy(a.copy()), mesh, [placement]).requires_grad_()
+
+    for name, (q, k, v, cot) in attn_cases.items():
+        kv_pl = Shard(2) if k.shape[2] % world == 0 else Replicate()
+        q, k, v = dist_leaf(q, Shard(2)), dist_leaf(k, kv_pl), dist_leaf(v, kv_pl)
+        o = dtensor.headwise(lambda q, k, v: ref.flash_attention_ref(q, k, v, causal=True),
+                             q, k, v)
+        (o * distribute_tensor(torch.from_numpy(cot.copy()), mesh, o.placements)).sum() \
+            .backward()
+        out[name] = {"o": o.placements, **{n: _np(t.full_tensor()) for n, t in
+                                           (("out", o), ("dq", q.grad), ("dk", k.grad),
+                                            ("dv", v.grad))}}
+    x = dist_leaf(logits, Shard(1))
+    per = dtensor.ls_xent(x, torch.from_numpy(labels.copy()), smoothing)
+    per.sum().backward()
+    out["ls_xent"] = {"out": _np(per.full_tensor()), "dx": _np(x.grad.full_tensor())}
+    return out

@@ -533,16 +533,21 @@ def test_flash_attention_under_autograd_launches_the_backward(cuda):
         torch.testing.assert_close(a.double(), w, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma2-27b", "recurrentgemma-9b",
-                                  "llama-3.2-vision-90b"])
-def test_transformer_gradients_card_vs_host(cuda, arch):
+@pytest.mark.parametrize("arch,remat", [
+    pytest.param(a, r, id=a + ("-remat" if r else ""))
+    for r in (False, True)
+    for a in ("qwen3-1.7b", "gemma2-27b", "recurrentgemma-9b", "llama-3.2-vision-90b")])
+def test_transformer_gradients_card_vs_host(cuda, arch, remat):
     """The smoke transformer's loss gradients, fp32, on the card (the flash
     forward and backward kernels) and on the host (the plain attention
-    under autograd), from the same weights and batch."""
+    under autograd), from the same weights and batch. One forward and one
+    backward launch an attention layer; with ``remat`` the forward runs
+    again in backward, so two forwards."""
     import dataclasses
 
     from repro_torch.launch import train as launch_train
-    cfg = dataclasses.replace(registry.get_smoke(arch), compute_dtype=torch.float32)
+    cfg = dataclasses.replace(registry.get_smoke(arch), compute_dtype=torch.float32,
+                              remat=remat)
     host = T.init(cfg, seed=0, device="cpu")
     g_ = torch.Generator().manual_seed(1)
     batch = [torch.randint(0, cfg.vocab, (2, 40), generator=g_) for _ in range(2)]
@@ -558,7 +563,9 @@ def test_transformer_gradients_card_vs_host(cuda, arch):
         grads[d] = dict(zip(names, torch.autograd.grad(loss, [params[n] for n in names])))
         if d == "cuda":
             n_attn = sum(k in ("attn", "local", "cross") for k in cfg.kinds())
-            assert ops.launch_counts()["flash_attn_bwd_f32"] == n_attn
+            counts = ops.launch_counts()
+            assert counts["flash_attn_bwd_f32"] == n_attn
+            assert counts["flash_attn_f32"] == (2 if remat else 1) * n_attn
     for name, g in grads["cpu"].items():
         torch.testing.assert_close(grads["cuda"][name].cpu(), g, rtol=1e-4, atol=1e-6,
                                    msg=name)

@@ -7,7 +7,9 @@ scales given random values so that every norm shows, carried across by
 ``convert.transformer_from_jax``) and take the same numpy batch (tokens,
 labels and, for the VLM, an fp32 vision input), in fp32 compute with fp32
 comm (at one rank the sync is then the identity on both sides), LARS,
-label smoothing 0.1, schedule B and the MoE aux weight. The port's loss is
+label smoothing 0.1, schedule B and the MoE aux weight, with ``remat`` off
+and on (on both sides: ``jax.checkpoint`` there, ``torch.utils.checkpoint``
+here, around each prefix layer and pattern block). The port's loss is
 the launcher's (``repro_torch.launch.train.loss_fn_for``) and its LARS and
 sync take the reference's stacked leaves (``convert.leaf_groups``); this
 holds the groups on every layout of the zoo (the MoE archs' ``first_dense``
@@ -49,9 +51,11 @@ B, S = 2, 24
 EPOCH, GB = 0.05, 2
 
 
-def _setup(arch):
-    jcfg = dataclasses.replace(jregistry.get_smoke(arch), compute_dtype=jnp.float32)
-    tcfg = dataclasses.replace(tregistry.get_smoke(arch), compute_dtype=torch.float32)
+def _setup(arch, remat=False):
+    jcfg = dataclasses.replace(jregistry.get_smoke(arch), compute_dtype=jnp.float32,
+                               remat=remat)
+    tcfg = dataclasses.replace(tregistry.get_smoke(arch), compute_dtype=torch.float32,
+                               remat=remat)
     rng = np.random.RandomState(100)
     jp = jax.tree_util.tree_map_with_path(
         lambda path, p: jnp.asarray(0.3 * rng.randn(*p.shape).astype(np.float32))
@@ -66,9 +70,10 @@ def _setup(arch):
     return jcfg, tcfg, jp, tp, batch
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_one_lm_train_step_matches_the_reference(arch):
-    jcfg, tcfg, jp, tp, batch = _setup(arch)
+@pytest.mark.parametrize("arch,remat", [pytest.param(a, r, id=a + ("-remat" if r else ""))
+                                        for r in (False, True) for a in ARCHS])
+def test_one_lm_train_step_matches_the_reference(arch, remat):
+    jcfg, tcfg, jp, tp, batch = _setup(arch, remat)
     mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("dy", "dx"))
 
     def jloss(params, b, dp_axes):
@@ -114,3 +119,50 @@ def test_params_tree_is_the_model_tree():
     got, want = tT.params_tree(flat), model.tree()
     assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
     assert all(a is b for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)))
+
+
+def _grads(tcfg, tp, batch):
+    params = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+    tbatch = tuple(torch.from_numpy(a).long() if a.dtype == np.int32 else torch.from_numpy(a)
+                   for a in batch)
+    loss, aux = launch_train.loss_fn_for(tcfg, 0.1)(params, tbatch, None)
+    names = list(params)
+    return loss, aux, dict(zip(names, torch.autograd.grad(loss + 0.01 * aux,
+                                                          [params[n] for n in names])))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_keeps_the_gradients(arch):
+    """The port alone: the loss, the aux loss and every gradient with
+    ``remat`` on equal those with it off, to 1e-6 (the recompute runs the
+    same fp32 ops on the same inputs; MoE dispatch included)."""
+    _, tcfg, _, tp, batch = _setup(arch)
+    base = _grads(tcfg, tp, batch)
+    rem = _grads(dataclasses.replace(tcfg, remat=True), tp, batch)
+    for a, b in zip(rem[:2], base[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    for name, g in base[2].items():
+        torch.testing.assert_close(rem[2][name], g, rtol=0, atol=1e-6, msg=f"{arch} {name}")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-3b-a800m", "recurrentgemma-9b"])
+def test_remat_checkpoints_each_prefix_layer_and_block(arch, monkeypatch):
+    """``checkpoint`` wraps ``n_prefix + n_blocks`` units, which together
+    cover every layer once in order; with ``remat`` off it is not called."""
+    _, tcfg, _, tp, batch = _setup(arch)
+    calls = []
+    real = tT.ckpt.checkpoint
+
+    def counting(fn, layers, kinds, *args, **kw):
+        calls.append(tuple(kinds))
+        return real(fn, layers, kinds, *args, **kw)
+
+    monkeypatch.setattr(tT.ckpt, "checkpoint", counting)
+    _grads(tcfg, tp, batch)
+    assert calls == []
+    rcfg = dataclasses.replace(tcfg, remat=True)
+    _grads(rcfg, tp, batch)
+    assert len(calls) == rcfg.n_prefix + rcfg.n_blocks
+    assert [k for unit in calls for k in unit] == list(rcfg.kinds())
+    assert all(len(u) == 1 for u in calls[:rcfg.n_prefix])
+    assert all(u == rcfg.pattern for u in calls[rcfg.n_prefix:])
