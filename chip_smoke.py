@@ -115,11 +115,25 @@
    on the card in the reference's stacked format (``groups=``) and
    restores it, which must give params and momentum back bit for bit;
 10. runs the dry run (``python -m repro_torch.launch.dryrun``, in
-   subprocesses without the card: torch's ``fake`` process group, meta
-   tensors) for Qwen3-1.7B's ``train_4k`` on the 16 x 16 mesh (256 ranks,
-   remat, the manual torus sync) and llama3-405b's ``decode_32k`` on the
-   2 x 16 x 16 mesh (512 ranks, FSDP), fails if either exits non-zero, and
-   prints each one's exchanges, collective bytes, FLOPs and wall seconds;
+   subprocesses without the card, all at once: torch's ``fake`` process
+   group, meta tensors) for Qwen3-1.7B's ``train_4k`` on the 16 x 16 mesh
+   (256 ranks, remat, the manual torus sync), llama3-405b's ``decode_32k``
+   on the 2 x 16 x 16 mesh (512 ranks, FSDP), gemma2-27b's ``train_4k``
+   (FSDP) and recurrentgemma-9b's ``prefill_32k`` (both 16 x 16, which
+   torch 2.11's DTensor rules refused before the embedding and the RG-LRU
+   gates ran shard by shard), fails if one exits non-zero, and prints
+   each one's exchanges, collective bytes, FLOPs,
+   bytes accessed and wall seconds; runs ``python -m
+   repro_torch.launch.cost_extrapolate`` on the Qwen3-1.7B artifact and
+   fails if its fit from 1 and 2 blocks misses the full count's FLOPs by
+   more than ``LINEAR_RTOL``; and holds ``perf.card_step``'s count of the
+   remat training step (``ROOFLINE_BATCH`` x 2048 tokens, one rank, meta
+   tensors, in one more subprocess beside the dry runs) against the
+   median of the same stage in step 8: it prints FLOPs, bytes accessed,
+   compute_s and memory_s at the H100's peaks, each over the measured
+   step, the flash kernels' share of the bytes, and the count's temp and
+   argument bytes beside ``max_memory_allocated``, and fails if a count
+   is 0 or ``max(compute_s, memory_s)`` exceeds the measured step;
 11. destroys the process group, and prints one ``{"kernels": [...]}``
    line, the card line again, and as the last line ``{"ok": true,
    "device": {...}}``.
@@ -190,9 +204,20 @@ LM_ARCH, LM_SEQ, LM_STAGES, LM_STAGE_STEPS = "qwen3-1.7b", 2048, (2, 4), 3
 # GiB reserved but unallocated: fragmentation, not capacity; PERF.md)
 LM_REMAT_MAX_BATCH = 9
 # the dry run's combinations: the manual torus sync at world 256 with remat,
-# and an FSDP arch at world 512
+# an FSDP arch at world 512, and two that torch 2.11's DTensor rules
+# refused until the model took their ops shard by shard: an FSDP arch's
+# train step (the embedding's gradient) and recurrentgemma's prefill (the
+# RG-LRU gates)
 DRYRUN_COMBOS = (("qwen3-1.7b", "train_4k", ()),
-                 ("llama3-405b", "decode_32k", ("--multi-pod",)))
+                 ("llama3-405b", "decode_32k", ("--multi-pod",)),
+                 ("gemma2-27b", "train_4k", ()),
+                 ("recurrentgemma-9b", "prefill_32k", ()))
+# the roofline's step: the remat training of LM_ARCH at ROOFLINE_BATCH x
+# LM_SEQ tokens, counted on meta tensors (repro_torch.launch.perf.card_step)
+# and timed on the card (its first remat stage)
+ROOFLINE_BATCH = 4
+# the fit of cost_extrapolate against the dry run's full count, relative
+LINEAR_RTOL = 1e-3
 # the full-width serve phases: dense attention, the MoE MLP, the SSD mixer,
 # the RG-LRU hybrid, the VLM's cross-attention
 SERVE_ARCHS = ("qwen3-1.7b", "granite-moe-3b-a800m", "mamba2-2.7b", "recurrentgemma-9b",
@@ -959,20 +984,40 @@ def supervised(torch, grid, model, data_fn, loss_fn, plan, sync, card: str) -> d
 def dryrun_phase() -> dict:
     """``DRYRUN_COMBOS`` through ``python -m repro_torch.launch.dryrun``, one
     subprocess each (the fake process group cannot share a process with the
-    NCCL one), the card hidden from them: meta tensors, no kernel. Fails on
-    a non-zero exit; returns and prints each one's numbers."""
+    NCCL one), the card hidden from them: meta tensors, no kernel; beside
+    them, in one more, ``perf.card_step``'s count of the remat training
+    step. All run at once. Then ``python -m
+    repro_torch.launch.cost_extrapolate`` on Qwen3-1.7B's ``train_4k``
+    artifact, whose fitted FLOPs must equal the full count within
+    ``LINEAR_RTOL``. Fails on a non-zero exit; returns and prints each
+    one's numbers, and the card step's record under "roofline"."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
     out = {}
     with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        procs = {(arch, shape, flags): subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape, "--out", d, *flags],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for arch, shape, flags in DRYRUN_COMBOS}
+        procs["roofline"] = subprocess.Popen(
+            [sys.executable, "-c", "import json; from repro_torch.launch import perf; "
+             f"print(json.dumps(perf.card_step({LM_ARCH!r}, {ROOFLINE_BATCH}, {LM_SEQ})))"],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        done = {}
+        try:
+            for key, proc in procs.items():
+                done[key] = proc.communicate(timeout=600)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        wall = time.perf_counter() - t0
+        for key, proc in procs.items():
+            if proc.returncode != 0:
+                fail(f"dry run {key} exited {proc.returncode}:\n{done[key][1][-3000:]}")
         for arch, shape, flags in DRYRUN_COMBOS:
-            t0 = time.perf_counter()
-            done = subprocess.run(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                 "--shape", shape, "--out", d, *flags],
-                env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
-            wall = time.perf_counter() - t0
-            if done.returncode != 0:
-                fail(f"dry run {arch} {shape} exited {done.returncode}:\n{done.stderr[-3000:]}")
             mesh = "pod2x16x16" if "--multi-pod" in flags else "pod16x16"
             r = json.loads((Path(d) / f"{arch}__{shape}__{mesh}.json").read_text())
             audit = r["bucket_audit"] or {}
@@ -981,15 +1026,74 @@ def dryrun_phase() -> dict:
                 "expected_exchanges": r["expected_exchanges"],
                 "collective_bytes": r["collectives"]["total_bytes"],
                 "collective_count": r["collectives"]["total_count"],
-                "flops": r["cost"]["flops"], "gathered": r["gathered"],
-                "build_s": r["lower_s"], "run_s": r["run_s"], "wall_s": wall}
+                "flops": r["cost"]["flops"], "bytes_accessed": r["cost"]["bytes_accessed"],
+                "gathered": r["gathered"], "build_s": r["lower_s"], "run_s": r["run_s"]}
             print(f"dry run {arch} {shape} on {mesh} ({r['chips']} ranks, fake group, meta "
                   f"tensors): exchanges {audit.get('num_exchanges')} (schedule "
                   f"{r['expected_exchanges']}), {r['collectives']['total_count']} collectives, "
                   f"{r['collectives']['total_bytes']} B a rank, {r['cost']['flops']:.4e} FLOPs "
-                  f"a rank, held whole {r['gathered']}, build {r['lower_s']} s, step "
-                  f"{r['run_s']} s, wall {wall:.1f} s (host clock)")
+                  f"and {r['cost']['bytes_accessed']:.4e} bytes accessed a rank, held whole "
+                  f"{r['gathered']}, build {r['lower_s']} s, step {r['run_s']} s (host clock)")
+        print(f"dry run: {len(DRYRUN_COMBOS)} combinations and the card step's count at "
+              f"once in {wall:.1f} s (host clock)")
+        out["roofline"] = json.loads(done["roofline"][0].strip().splitlines()[-1])
+
+        t0 = time.perf_counter()
+        arch, shape, _ = DRYRUN_COMBOS[0]
+        ce = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.cost_extrapolate", "--dir", d,
+             "--only", arch], env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if ce.returncode != 0:
+            fail(f"cost_extrapolate exited {ce.returncode}:\n{ce.stderr[-3000:]}")
+        r = json.loads((Path(d) / f"{arch}__{shape}__pod16x16.json").read_text())
+        ct = r["cost_true"]
+        rel = ct["flops"] / r["cost"]["flops"] - 1
+        out["linearity"] = {"combination": f"{arch} {shape} pod16x16", "n_blocks": ct["n_blocks"],
+                            "flops": r["cost"]["flops"], "fit_flops": ct["flops"],
+                            "rel_diff": ct["linear"]["rel_diff"],
+                            "wall_s": time.perf_counter() - t0}
+        print(f"cost_extrapolate {arch} {shape}: fit from 1 and 2 blocks to {ct['n_blocks']}: "
+              f"{ct['flops']:.6e} FLOPs against the full count's {r['cost']['flops']:.6e} "
+              f"({rel:+.2e}; tol {LINEAR_RTOL:g}); collective bytes "
+              f"{ct['linear']['rel_diff']['coll_total']:+.2e}, bytes accessed "
+              f"{ct['linear']['rel_diff']['bytes_accessed']:+.2e} (reported)")
+        if not abs(rel) <= LINEAR_RTOL:
+            fail(f"cost_extrapolate: the fit's FLOPs are {rel:+.2e} off the full count")
     return out
+
+
+def roofline(rec: dict, remat: dict, card: str) -> dict:
+    """``perf.card_step``'s record of the remat step beside its measured
+    median on the card: fails if either count is 0 or if its roofline,
+    the larger of compute_s and memory_s, exceeds the measured step (no
+    card beats its own roofline: the count would be wrong)."""
+    st = remat["stages"][0]
+    if st["global_batch"] != ROOFLINE_BATCH:
+        fail(f"the remat run's first stage is {st['global_batch']} x {LM_SEQ}, the roofline's "
+             f"{ROOFLINE_BATCH} x {LM_SEQ}")
+    measured = st["steady_median_ms"] / 1e3
+    row = {k: rec[k] for k in ("flops", "bytes_accessed", "compute_s", "memory_s",
+                               "attention_bytes_share", "temp_gib", "argument_gib",
+                               "kernel_bytes", "dominant")}
+    row.update(measured_s=measured, compute_share=rec["compute_s"] / measured,
+               memory_share=rec["memory_s"] / measured,
+               meta_gib=rec["temp_gib"] + rec["argument_gib"], peak_gib=remat["peak_gib"],
+               card=card)
+    print(f"roofline {LM_ARCH} remat {ROOFLINE_BATCH} x {LM_SEQ}, one rank: "
+          f"{rec['flops']:.6e} FLOPs, {rec['bytes_accessed']:.6e} bytes accessed (eager, op by "
+          f"op; the flash kernels' share {rec['attention_bytes_share']:.4f}); compute_s "
+          f"{rec['compute_s'] * 1e3:.2f} ms, memory_s {rec['memory_s'] * 1e3:.2f} ms at the "
+          f"H100 SXM's 989.4 TFLOP/s and 3.35 TB/s; measured median {measured * 1e3:.2f} ms: "
+          f"compute_s/measured {row['compute_share']:.4f}, memory_s/measured "
+          f"{row['memory_share']:.4f}; meta temp + arguments {row['meta_gib']:.2f} GiB, "
+          f"max_memory_allocated {remat['peak_gib']:.2f} GiB ({card})")
+    if not (rec["flops"] > 0 and rec["bytes_accessed"] > 0):
+        fail(f"roofline: {rec['flops']} FLOPs, {rec['bytes_accessed']} bytes counted")
+    if max(rec["compute_s"], rec["memory_s"]) > measured:
+        fail(f"roofline: max(compute_s, memory_s) = "
+             f"{max(rec['compute_s'], rec['memory_s']) * 1e3:.2f} ms exceeds the measured "
+             f"{measured * 1e3:.2f} ms: the count is wrong")
+    return row
 
 
 def main() -> int:
@@ -1244,7 +1348,7 @@ def run(torch, store_dir: str) -> int:
     print(f"phase train {LM_ARCH}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     lm_remat = [train_lm(torch, dev, grid, card, stages=(b,), remat=True)
-                for b in (4, LM_REMAT_MAX_BATCH)]
+                for b in (ROOFLINE_BATCH, LM_REMAT_MAX_BATCH)]
     at4 = next(st for st in lm["stages"] if st["global_batch"] == 4)
     for r in lm_remat:
         st = r["stages"][0]
@@ -1309,7 +1413,8 @@ def run(torch, store_dir: str) -> int:
     print(f"phase smoke checkpoints, stacked, on the card: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     dry = dryrun_phase()
-    print(f"phase dry run: {time.perf_counter() - t0:.1f} s")
+    roof = roofline(dry.pop("roofline"), lm_remat[0], card)
+    print(f"phase dry run, cost_extrapolate and the roofline: {time.perf_counter() - t0:.1f} s")
 
     # -- report ---------------------------------------------------------------
     sources = {
@@ -1394,7 +1499,7 @@ def run(torch, store_dir: str) -> int:
                                    **{k: {x: v for x, v in r.items() if x != "counts"}
                                       for k, r in remat_runs.items()}},
                       "card": card}))
-    print(json.dumps({"dryrun": dry, "card": card}))
+    print(json.dumps({"dryrun": dry, "roofline": roof, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

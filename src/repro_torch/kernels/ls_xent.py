@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, traffic
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -134,7 +134,9 @@ class LSXent(torch.autograd.Function):
         if logits.is_cuda:
             loss, lse = ls_xent_fwd_cuda(logits, labels, smoothing)
         else:
-            loss, lse = ref.ls_xent_fwd_ref(logits, labels, smoothing)
+            with traffic.as_kernel("ls_xent_fwd") as io:
+                loss, lse = ref.ls_xent_fwd_ref(logits, labels, smoothing)
+                io(logits, labels, loss, lse)
         ctx.save_for_backward(logits, labels, lse)
         ctx.smoothing = smoothing
         return loss
@@ -146,5 +148,7 @@ class LSXent(torch.autograd.Function):
         if logits.is_cuda:
             d = ls_xent_bwd_cuda(logits, labels, lse, gout, ctx.smoothing)
         else:
-            d = ref.ls_xent_bwd_ref(logits, labels, lse, gout, ctx.smoothing)
+            with traffic.as_kernel("ls_xent_bwd") as io:
+                d = ref.ls_xent_bwd_ref(logits, labels, lse, gout, ctx.smoothing)
+                io(logits, labels, lse, gout, d)
         return d, None, None

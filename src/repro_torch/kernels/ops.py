@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, traffic
 from repro_torch.kernels.flash_attn import (FlashAttention, check_every_row_attends,
                                             flash_attention_bwd_bf16, flash_attention_bwd_f32,
                                             flash_attention_cuda, flash_attention_f32,
@@ -36,9 +36,12 @@ def lars_update_leaves(ps, gs, vs, lars, *, lr, mom, eta, weight_decay, eps,
     card: two launches for all leaves (more past ``MAX_LEAVES`` leaves).
     """
     if not ps or not ps[0].is_cuda:
-        return ref.lars_update_leaves_ref(ps, gs, vs, lars, lr=lr, mom=mom, eta=eta,
-                                          weight_decay=weight_decay, eps=eps,
-                                          nesterov=nesterov, groups=groups)
+        with traffic.as_kernel("lars_update") as io:
+            out = ref.lars_update_leaves_ref(ps, gs, vs, lars, lr=lr, mom=mom, eta=eta,
+                                             weight_decay=weight_decay, eps=eps,
+                                             nesterov=nesterov, groups=groups)
+            io(*ps, *gs, *vs, *out[0], *out[1])
+        return out
     return lars_update_cuda(ps, gs, vs, lars, lr=lr, mom=mom, eta=eta,
                             weight_decay=weight_decay, eps=eps, nesterov=nesterov,
                             groups=groups)
@@ -88,10 +91,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     if not q.is_cuda:
         check_every_row_attends(q.shape[1], k.shape[1], window)
-        # DTensors (the dry run, meta): each rank's sequences and query heads
-        return dtensor.headwise(
+        # DTensors (the dry run, meta): each rank's sequences and query heads;
+        # a run that counts bytes counts the kernels' (``traffic.attention``)
+        return dtensor.headwise(traffic.attention(
             lambda q, k, v: ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                                    softcap=softcap, scale=scale), q, k, v)
+                                                    softcap=softcap, scale=scale)), q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, softcap, scale)

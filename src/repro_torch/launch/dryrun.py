@@ -46,8 +46,20 @@ What ``run_one`` records, under the reference's keys:
   stacked leaves at their global shapes, the reference's count.
 - ``cost.flops``: ``FlopCounterMode`` over this rank's program. It counts
   every layer, where the reference's ``cost_analysis`` counts a scanned
-  body once (``launch/cost_extrapolate.py`` scales that). ``bytes_accessed``
-  is null: nothing here models memory traffic.
+  body once (``launch/cost_extrapolate.py`` fits that and, here, checks
+  that the count is linear in the blocks).
+- ``cost.bytes_accessed``: the traffic of this rank's eager program, op by
+  op with no fusion credited (``hlo_stats.Recorder``): each op's local
+  tensor inputs read once and outputs written once; views, allocations
+  and the collectives (counted apart) left out, and DTensor's shape
+  propagation too, as for the FLOPs. The attention counts as the flash
+  kernels move it (q, k, v, o and lse; in backward also dO, dq, dk, dv),
+  not as the plain attention that runs on meta tensors and writes the
+  (B, H, S, S) scores; the loss (where the logits are whole) and LARS
+  as their kernels too (``kernels/traffic.py``). ``cost.kernel_bytes``
+  (not a reference key): those kernels' share, by kernel. XLA's
+  ``bytes accessed``, the reference's, is of a fused program, so the two
+  differ by the fusion.
 - ``memory``: ``argument_bytes`` and ``output_bytes`` are the local shard
   bytes of a rank's inputs and outputs; ``temp_bytes`` the peak bytes of
   the storages the step made, followed by the recorder
@@ -63,10 +75,15 @@ What ``run_one`` records, under the reference's keys:
   ``collectives`` and ``memory`` above those of the tensor-parallel
   program; an empty dict means none did. The attention runs on each
   rank's batch and head shards, the loss on its vocab shards (all-reduces
-  of a row's max, sum of exponentials, label logit and sum), and the norms
-  make their input whole along d (pending sums reduced) before scaling
-  it, and their gradient on the way back, as Megatron's tensor
-  parallelism does.
+  of a row's max, sum of exponentials, label logit and sum), the
+  embedding on its vocab rows (``dtensor.vocab_lookup``: an all-reduce
+  of the looked-up rows; under FSDP the table's d shards gathered and
+  the gradient reduce-scattered), the RG-LRU gates on their columns of
+  an input made whole along its width, and the RG-LRU scan on each
+  rank's batch and width shards; the norms make their input whole along
+  d (pending sums reduced) before scaling it, and their gradient on the
+  way back, as Megatron's tensor parallelism does. The MoE dispatch's
+  row gather adds its gradient rows locally (``dtensor.take_rows``).
 - ``lower_s``: seconds to build the step's inputs (meta init, placements);
   ``compile_s`` is null (nothing compiles) and ``run_s`` the wall seconds
   of the step on meta tensors.
@@ -143,6 +160,12 @@ def fake_world(world: int):
         # layout must not reach
         _clear_sharding_prop_cache()
         dist.destroy_process_group()
+
+
+def world_of(multi_pod: bool, mesh_shape: dict | None) -> int:
+    """The ranks of a combination's mesh: ``mesh_shape``'s, else the
+    production mesh's."""
+    return math.prod(mesh_shape.values()) if mesh_shape else (512 if multi_pod else 256)
 
 
 def _mesh(multi_pod: bool, mesh_shape: dict | None):
@@ -342,7 +365,8 @@ def build_decode(arch_id, cfg, shape, mesh):
 
 def measure(fn, args) -> dict:
     """Run ``fn(*args)`` once under ``hlo_stats.Recorder`` (collectives,
-    ops, the storages' peak) and ``FlopCounterMode``: its record, FLOPs,
+    ops, the bytes they move, the storages' peak) and ``FlopCounterMode``:
+    its record, FLOPs, bytes accessed (and the kernels' share of them),
     wall seconds, the local bytes of its arguments and outputs, and the
     sites that held whole what the placements shard (``dtensor.GATHERED``)."""
     rec = hlo_stats.Recorder(track_memory=True)
@@ -352,6 +376,7 @@ def measure(fn, args) -> dict:
     with flops, rec:
         out = fn(*args)
     return {"recorder": rec, "flops": flops.get_total_flops(), "run_s": time.time() - t0,
+            "bytes_accessed": rec.bytes_accessed, "kernel_bytes": dict(rec.kernel_bytes),
             "argument_bytes": _local_bytes(args), "output_bytes": _local_bytes(out),
             "gathered": dict(dtensor.GATHERED)}
 
@@ -390,8 +415,7 @@ def run_one(arch_id: str, shape_name: str, multi_pod: bool,
     ``smoke_arch`` takes the arch's smoke config (the tests' small runs);
     ``hw`` is the fabric that ``bucket_bytes="auto"`` needs."""
     shape = SHAPES[shape_name]
-    world = (math.prod(mesh_shape.values()) if mesh_shape else (512 if multi_pod else 256))
-    with fake_world(world):
+    with fake_world(world_of(multi_pod, mesh_shape)):
         mesh, mesh_name = _mesh(multi_pod, mesh_shape)
         cfg = arch_for(arch_id, shape, smoke_arch)
         down_axes = tuple(fault_plan.down_axes) if fault_plan is not None else ()
@@ -441,7 +465,8 @@ def run_one(arch_id: str, shape_name: str, multi_pod: bool,
                 "temp_bytes": rec.peak_bytes,
                 "peak_bytes": arg_bytes + rec.peak_bytes,
             },
-            "cost": {"flops": m["flops"], "bytes_accessed": None},
+            "cost": {"flops": m["flops"], "bytes_accessed": m["bytes_accessed"],
+                     "kernel_bytes": m["kernel_bytes"]},
             "collectives": coll,
             "op_histogram": hlo_stats.op_histogram(rec),
             "gathered": m["gathered"],

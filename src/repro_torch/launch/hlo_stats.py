@@ -23,6 +23,17 @@ bytes (what a rank receives), group size from the op's process group.
 ``Recorder``) in place of HLO text; ``_wire_bytes`` is copied formula for
 formula.
 
+The recorder also counts the bytes the program moves (``bytes_accessed``):
+for each local op, the bytes of its tensor inputs, each read once, and of
+its outputs, each written once, as an eager program without fusion moves
+them. Views and other ops that move no data (``_MOVES_NOTHING``) and the
+collectives, which ``collectives`` counts, are left out, and so are the
+ops of DTensor's shape propagation, as above. A kernel whose plain
+version runs in its place on the host (``kernels/traffic.py``) is counted
+as the kernel moves it: inside ``kernel(name)`` the ops count nothing,
+and the span counts the inputs and outputs it is given, by kernel name
+in ``kernel_bytes``.
+
 With ``track_memory`` the recorder also follows the bytes held by the
 storages of the tensors the program makes (meta ones too: a meta storage
 has its size), each released when its last tensor dies, and keeps the
@@ -32,6 +43,7 @@ step's arguments) are not in it.
 
 from __future__ import annotations
 
+import contextlib
 import weakref
 from collections import Counter, defaultdict
 
@@ -75,8 +87,34 @@ _FUNCTIONAL = {
 }
 
 
+# ops that move no data: allocations whose contents nothing reads, and
+# views that the dispatcher does not mark as such
+_MOVES_NOTHING = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
+                  "_unsafe_view", "set_", "resize_"}
+
+
 def _tensors(x) -> list[torch.Tensor]:
     return [t for t in tree_leaves(x) if isinstance(t, torch.Tensor)]
+
+
+def nbytes(t) -> int:
+    """The bytes a kernel reads or writes of ``t``: its distinct elements (a
+    broadcast dim, of stride 0, counts once), this rank's shard of a
+    DTensor; an int is a count of bytes as it is."""
+    if isinstance(t, int):
+        return t
+    if isinstance(t, DTensor):
+        t = t.to_local()
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n * t.element_size()
+
+
+def _traffic(args, out) -> int:
+    """Bytes in and out of one op: each distinct input once, each output once."""
+    ins = {id(t): t for t in _tensors(args)}
+    return sum(map(nbytes, ins.values())) + sum(map(nbytes, _tensors(out)))
 
 
 def _group_size(func, args) -> int:
@@ -106,13 +144,18 @@ def _collective(func, args, out) -> dict | None:
 
 class Recorder(TorchDispatchMode):
     """Records this rank's collectives (``collectives``, in issue order),
-    its local ops by name (``ops``) and, with ``track_memory``, the peak
-    bytes of the storages its tensors hold (``peak_bytes``)."""
+    its local ops by name (``ops``), the bytes they move
+    (``bytes_accessed``; the kernels' share in ``kernel_bytes``) and, with
+    ``track_memory``, the peak bytes of the storages its tensors hold
+    (``peak_bytes``)."""
 
     def __init__(self, track_memory: bool = False):
         super().__init__()
         self.collectives: list[dict] = []
         self.ops: Counter = Counter()
+        self.bytes_accessed = 0
+        self.kernel_bytes: Counter = Counter()
+        self._in_kernel = 0
         self.track_memory = track_memory
         self.live_bytes = self.peak_bytes = 0
         self._refs: dict[int, int] = {}
@@ -132,10 +175,28 @@ class Recorder(TorchDispatchMode):
         op = _collective(func, args, out)
         if op is not None:
             self.collectives.append(op)
+        elif not (self._in_kernel or func.is_view or func.namespace in ("c10d", "_c10d_functional")
+                  or func.overloadpacket.__name__ in _MOVES_NOTHING):
+            self.bytes_accessed += _traffic((args, kwargs), out)
         if self.track_memory:
             for t in _tensors(out):
                 self._hold(t)
         return out
+
+    @contextlib.contextmanager
+    def kernel(self, name: str):
+        """Count what runs inside as the kernel ``name``: its ops count no
+        bytes; the tensors (or byte counts) given to the yielded function
+        count once each, in ``bytes_accessed`` and ``kernel_bytes[name]``."""
+        moved: list = []
+        self._in_kernel += 1
+        try:
+            yield lambda *ts: moved.extend(ts)
+        finally:
+            self._in_kernel -= 1
+        n = sum(map(nbytes, moved))
+        self.bytes_accessed += n
+        self.kernel_bytes[name] += n
 
     def _hold(self, t: torch.Tensor) -> None:
         storage = t.untyped_storage()

@@ -169,7 +169,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
 
 def embed(embedding: torch.Tensor, ids: torch.Tensor,
           dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    return cast(embedding, dtype)[ids.long()]
+    """The rows of ``ids``; a DTensor table (the dry run) over its vocab
+    shards (``dtensor.vocab_lookup``)."""
+    return dtensor.vocab_lookup(cast(embedding, dtype), ids)
 
 
 def unembed(embedding: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

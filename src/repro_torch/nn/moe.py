@@ -141,7 +141,7 @@ def moe_apply(p, x: torch.Tensor, cfg: MoEConfig):
     slot_gate = torch.zeros(cfg.n_experts * cap + 1, dtype=x.dtype, device=gates.device)
     slot_gate[slot_of.reshape(-1)] = gates
     slot_gate = dtensor.replicated_like(slot_gate, x)
-    xe = torch.cat([xt, xt.new_zeros(1, d)])[slot_tok]              # (E, cap, d)
+    xe = dtensor.take_rows(torch.cat([xt, xt.new_zeros(1, d)]), slot_tok)   # (E, cap, d)
     ye = expert_ffn(p["experts"], xe, cfg.act)
     ye = ye * slot_gate[:-1].view(cfg.n_experts, cap, 1)
     return combine(ye, slot_of, topk_e).reshape(B, S, d), aux

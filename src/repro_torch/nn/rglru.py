@@ -77,8 +77,11 @@ def rglru_init(gen: torch.Generator, cfg: RGLRUConfig) -> nn.ModuleDict:
 
 
 def _gates(p, x: torch.Tensor, cfg: RGLRUConfig):
-    """(a, beta * i * x), both (B, S, w) fp32."""
-    xf = x.float()
+    """(a, beta * i * x), both (B, S, w) fp32. A DTensor ``x`` (the dry
+    run) is made whole along w first, as the tensor-parallel program's
+    column-parallel gates read it: each rank then computes its columns of
+    the gates, sharded as the kernels' columns and the biases are."""
+    xf = dtensor.unshard(x, -1).float()
     r = torch.sigmoid(xf @ p["rg_kernel"] + p["rg_bias"])
     i = torch.sigmoid(xf @ p["ig_kernel"] + p["ig_bias"])
     # sigmoid(L)^(c r)
@@ -144,7 +147,9 @@ def rglru_apply(p, u: torch.Tensor, cfg: RGLRUConfig, state: dict | None = None,
     gate = L.ACTS["gelu"](L.dense(u, p["in_gate"]["kernel"]))
     x, new_conv = L.causal_conv(x, p["conv"]["kernel"], None if state is None else state["conv"])
     a, bx = _gates(p, x, cfg)
-    h = _scan(a, bx, None if state is None else state["hidden"])
+    h0 = None if state is None else state["hidden"]
+    # independent across the batch and the width: each rank's shards
+    h = dtensor.elementwise(lambda a, b: _scan(a, b, h0), a, bx, whole=(1,))
     y = L.dense(h.to(u.dtype) * gate, p["out"]["kernel"])
     if return_state:
         return y, {"hidden": h[:, -1].contiguous(), "conv": new_conv}

@@ -5,7 +5,10 @@ DTensor derives the output's placement and the collectives it needs; for a
 few it has no rule, or a rule that fails. There the module that calls the
 op either gathers the offending tensor dims first, or runs the op on each
 rank's shards as the tensor-parallel program does (``headwise`` for the
-attention, ``ls_xent`` for the loss over vocabulary shards). On a plain
+attention, ``ls_xent`` for the loss over vocabulary shards,
+``vocab_lookup`` for the embedding, ``elementwise`` for the RG-LRU
+scan, ``take_rows`` for the gradient of the MoE dispatch's gather). On a
+plain
 tensor these helpers return their input or call the function as it is, so
 the card and host paths are untouched.
 """
@@ -102,15 +105,25 @@ def whole(x: torch.Tensor, what: str) -> torch.Tensor:
     return replicate(x).to_local()
 
 
-def elementwise(fn, x: torch.Tensor) -> torch.Tensor:
-    """``fn(x)`` for an elementwise ``fn`` whose backward DTensor has no rule
-    for (``log_sigmoid_backward``): run on each rank's shard, pending sums
-    reduced first, under autograd; on a plain tensor ``fn(x)``."""
-    if not isinstance(x, DTensor):
-        return fn(x)
-    x = unshard(x)
-    return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements,
-                              run_check=False, shape=x.shape, stride=x.stride())
+def elementwise(fn, *xs: torch.Tensor, whole: tuple[int, ...] = ()) -> torch.Tensor:
+    """``fn(*xs)`` for an ``fn`` of same-shaped tensors whose result, one
+    tensor of their shape, takes each element from the inputs' elements
+    at its position, or along the tensor dims ``whole`` only: the
+    elementwise ``log_sigmoid``, whose backward DTensor has no rule for,
+    and the RG-LRU scan over the sequence, whose ``pad`` some DTensor
+    versions fail on a tensor sharded on two mesh dims. DTensors run on
+    each rank's shards under autograd: ``whole`` gathered, pending sums
+    reduced, all in the first's placements, which the result takes. Plain
+    tensors: ``fn(*xs)``."""
+    if not any(isinstance(x, DTensor) for x in xs):
+        return fn(*xs)
+    ref = next(x for x in xs if isinstance(x, DTensor))
+    lead = unshard(replicated_like(xs[0], ref), *whole)
+    xs = [lead] + [replicated_like(x, ref).redistribute(placements=lead.placements)
+                   for x in xs[1:]]
+    return DTensor.from_local(fn(*(x.to_local() for x in xs)), lead.device_mesh,
+                              lead.placements, run_check=False, shape=lead.shape,
+                              stride=lead.stride())
 
 
 def split_dim(x: torch.Tensor, dim: int, n: int, m: int) -> torch.Tensor:
@@ -164,6 +177,124 @@ def batchwise(fn, *rows, shared=(), what: str = "per batch shard"):
     def wrap(t):
         return DTensor.from_local(t, lead.device_mesh, lead.placements, run_check=False)
     return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+class _VocabLookup(torch.autograd.Function):
+    """``vocab_lookup`` on a DTensor table: see there."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        mesh = table.device_mesh
+        # (the table's placement for the lookup, the output's, the local
+        # gradient's) on each mesh dim
+        plan = []
+        for p, ip in zip(table.placements, ids.placements):
+            rows_here = isinstance(ip, Shard)          # this mesh dim splits the ids' rows
+            if isinstance(p, Shard) and p.dim == 0 and not rows_here:
+                plan.append((p, Replicate(), p))       # vocab: the shards' sum, reduced
+            elif isinstance(p, Shard) and p.dim == 1 and not rows_here:
+                plan.append((p, Shard(ids.ndim), p))   # d split, the ids whole: d stays split
+            else:                                      # d gathered, or a replica
+                if isinstance(p, Shard) and p.dim == 0:
+                    _note("embedding: whole vocab", table, (0,))
+                plan.append((Replicate(), ip, Partial() if rows_here else Replicate()))
+        table_pl, out_pl, grad_pl = (list(x) for x in zip(*plan))
+        t = table.redistribute(placements=table_pl).to_local()
+        idx, hit = ids.to_local().long(), None
+        if t.shape[0] < table.shape[0]:                # this rank's rows of the vocab
+            from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+            _, offset = compute_local_shape_and_global_offset(table.shape, mesh, table_pl)
+            idx = idx - offset[0]
+            hit = (idx >= 0) & (idx < t.shape[0])
+            idx = torch.where(hit, idx, 0)
+        out = t.index_select(0, idx.reshape(-1)).view(*idx.shape, t.shape[1])
+        if hit is not None:
+            out = out * hit[..., None].to(out.dtype)
+        ctx.save_for_backward(idx, hit)
+        ctx.plan = (mesh, t.shape, table.shape, table.stride(), table.placements, out_pl,
+                    grad_pl)
+        shape = (*ids.shape, table.shape[1])
+        # the vocab shards' lookups are summed here, as Megatron's
+        # vocab-parallel embedding does: a sum left pending would ride the
+        # residual stream and be reduced again at every layer
+        pending = [Partial() if isinstance(p, Replicate) and isinstance(tp, Shard)
+                   and tp.dim == 0 else p for p, tp in zip(out_pl, table_pl)]
+        return DTensor.from_local(out, mesh, pending, run_check=False, shape=shape,
+                                  stride=torch.empty(shape, device="meta").stride()
+                                  ).redistribute(placements=out_pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, hit = ctx.saved_tensors
+        mesh, local_shape, shape, stride, placements, out_pl, grad_pl = ctx.plan
+        # each vocab shard takes the whole gradient of its rows' lookups
+        g = g.redistribute(placements=out_pl).to_local()
+        if hit is not None:
+            g = g * hit[..., None].to(g.dtype)
+        dt = g.new_zeros(local_shape).index_add_(0, idx.reshape(-1),
+                                                 g.reshape(-1, g.shape[-1]))
+        grad = DTensor.from_local(dt, mesh, grad_pl, run_check=False, shape=shape,
+                                  stride=stride)
+        return grad.redistribute(placements=placements), None
+
+
+def vocab_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``: rows of a (V, d) table. A DTensor table (the dry run)
+    is looked up as the tensor-parallel program does, not by DTensor's
+    rule for the indexing (whose backward's ``index_put`` some versions
+    refuse): a d split over a mesh dim that splits the ids' rows (FSDP's
+    ``data``) is gathered; each rank looks up its own ids in its own vocab
+    rows and zeroes the ids outside them, and the vocab shards' results
+    are summed (an all-reduce over the vocab's mesh dim). The backward
+    adds the rows' gradients into the local rows (``index_add``) and sends
+    them to the table's placement (a reduce-scatter over ``data`` under
+    FSDP). A plain table: ``table[ids]``."""
+    if not isinstance(table, DTensor):
+        return table[ids.long()]
+    return _VocabLookup.apply(table, replicated_like(ids, table))
+
+
+class _TakeRows(torch.autograd.Function):
+    """``take_rows`` on DTensors: see there."""
+
+    @staticmethod
+    def forward(ctx, rows, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = (rows.shape, rows.stride(), rows.placements)
+        return rows[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+        (idx,) = ctx.saved_tensors
+        shape, stride, placements = ctx.rows
+        k, gl = idx.ndim, g.to_local()
+        # the slots of this rank's gradient rows, and the buffer's placement:
+        # a pending sum where the slots are split, the trailing dims' shards
+        _, offset = compute_local_shape_and_global_offset(g.shape, g.device_mesh, g.placements)
+        il = idx.to_local()[tuple(slice(o, o + n) for o, n in zip(offset[:k], gl.shape[:k]))]
+        dx = gl.new_zeros(shape[0], *gl.shape[k:]).index_add_(
+            0, il.reshape(-1), gl.reshape(-1, *gl.shape[k:]))
+        pl = [p if not isinstance(p, Shard) else
+              Partial() if p.dim % g.ndim < k else Shard(p.dim % g.ndim - k + 1)
+              for p in g.placements]
+        return DTensor.from_local(dx, g.device_mesh, pl, run_check=False, shape=shape,
+                                  stride=stride).redistribute(placements=placements), None
+
+
+def take_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``rows[idx]`` for an integer ``idx`` whole on every rank (the MoE
+    dispatch's slots). A DTensor ``rows`` (the dry run) takes DTensor's
+    rule forward; backward, each rank adds its local gradient rows into a
+    local (N, ...) buffer (``index_add``), sharded as the gradient's
+    trailing dims and a pending sum where the gradient splits idx's dims
+    (the experts), which then goes to ``rows``' placement: some DTensor
+    versions' rule for the ``index_put`` that autograd would use refuses a
+    gradient sharded along a trailing dim (FSDP's d). A plain ``rows``:
+    ``rows[idx]``."""
+    if not isinstance(rows, DTensor):
+        return rows[idx]
+    return _TakeRows.apply(rows, replicate(replicated_like(idx, rows)))
 
 
 def normalized(x: torch.Tensor) -> torch.Tensor:
@@ -227,11 +358,13 @@ def ls_xent(logits: torch.Tensor, labels: torch.Tensor, smoothing: float):
     shards, then the rows' max, sum of exponentials, label logit and sum
     over the vocab as all-reduces of R values (differentiable: each rank
     gets its shard's gradient). Returns (R,) fp32 DTensor rows, or None
-    where the vocab is not so sharded: the caller then gathers it. Labels
+    where the vocab is not so sharded (over one mesh dim of more than one
+    rank): the caller then gathers it. Labels
     outside [0, V) are not flagged (the dry run computes no value)."""
     logits = unshard(logits)
     mesh, V = logits.device_mesh, logits.shape[1]
-    vocab = [i for i, p in enumerate(logits.placements) if isinstance(p, Shard) and p.dim == 1]
+    vocab = [i for i, p in enumerate(logits.placements)
+             if isinstance(p, Shard) and p.dim == 1 and mesh.shape[i] > 1]
     if len(vocab) != 1 or V % mesh.shape[vocab[0]]:
         _note("loss: whole vocab", logits, (1,))
         return None

@@ -344,3 +344,57 @@ def dtensor_shards_body(rank: int, world: int, attn_cases, logits, labels, smoot
     per.sum().backward()
     out["ls_xent"] = {"out": _np(per.full_tensor()), "dx": _np(x.grad.full_tensor())}
     return out
+
+
+def dtensor_rows_body(rank: int, world: int, table, ids, cot, rows, idx, rows_cot,
+                      rg) -> dict:
+    """``utils/dtensor.py``'s row gathers and the RG-LRU gates on a (data 2,
+    model 2) mesh of four gloo ranks, from whole inputs: ``vocab_lookup``
+    of ``ids`` (rows over ``data``) in ``table`` placed as FSDP (vocab
+    over ``model``, d over ``data``), as tensor parallelism (vocab over
+    ``model``) and with d over ``model``; ``take_rows`` of ``rows`` by a
+    whole ``idx``, the gradient split over ``idx``'s first dim and the
+    trailing one; ``nn/rglru.py``'s ``_gates`` and the scan through
+    ``dtensor.elementwise`` with the placements of the dry run (x's width and
+    the gate kernels' columns over ``model``). Returns each output and the
+    gradients of its inputs (a cotangent's inner product), whole."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.nn import rglru
+    from repro_torch.utils import dtensor
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+
+    def leaf(a, placements, grad=True):
+        t = distribute_tensor(torch.from_numpy(a.copy()), mesh, placements)
+        return t.requires_grad_() if grad else t
+
+    out = {}
+    for name, pl in (("fsdp", [Shard(1), Shard(0)]), ("tp", [Replicate(), Shard(0)]),
+                     ("d_model", [Replicate(), Shard(1)])):
+        t = leaf(table, pl)
+        y = dtensor.vocab_lookup(t, leaf(ids, [Shard(0), Replicate()], grad=False))
+        (y * leaf(cot, list(y.placements), grad=False)).sum().backward()
+        out[f"lookup_{name}"] = {"out": _np(y.full_tensor()), "dtable": _np(t.grad.full_tensor()),
+                                 "grad_placements": t.grad.placements}
+    r = leaf(rows, [Shard(0), Replicate()])
+    y = dtensor.take_rows(r, torch.from_numpy(idx.copy()))
+    (y * leaf(rows_cot, [Shard(2), Shard(0)], grad=False)).sum().backward()
+    out["take_rows"] = {"out": _np(y.full_tensor()), "drows": _np(r.grad.full_tensor())}
+    cfg = rglru.RGLRUConfig(d_model=rg["x"].shape[-1])
+    p = {"rg_kernel": leaf(rg["rg_kernel"], [Replicate(), Shard(1)]),
+         "ig_kernel": leaf(rg["ig_kernel"], [Replicate(), Shard(1)]),
+         "rg_bias": leaf(rg["rg_bias"], [Replicate(), Shard(0)]),
+         "ig_bias": leaf(rg["ig_bias"], [Replicate(), Shard(0)]),
+         "lambda_param": leaf(rg["lambda_param"], [Replicate(), Shard(0)])}
+    x = leaf(rg["x"], [Shard(0), Shard(2)])
+    a, bx = rglru._gates(p, x, cfg)
+    h = dtensor.elementwise(rglru._scan, a, bx, whole=(1,))
+    loss = sum((t * leaf(rg[f"cot_{n}"], list(t.placements), grad=False)).sum()
+               for n, t in (("a", a), ("bx", bx), ("h", h)))
+    loss.backward()
+    out["rglru"] = {"a": _np(a.full_tensor()), "bx": _np(bx.full_tensor()),
+                    "h": _np(h.full_tensor()), "dx": _np(x.grad.full_tensor()),
+                    **{f"d{n}": _np(t.grad.full_tensor()) for n, t in p.items()}}
+    return out

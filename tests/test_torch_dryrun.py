@@ -248,3 +248,148 @@ def test_bucket_sweep_needs_a_fabric(tmp_path):
                  "--out", str(tmp_path)])
     out = json.loads((tmp_path / "bucket_sweep__qwen3-1.7b__pod16x16.json").read_text())
     assert all(out["checks"].values()) and out["chips"] == 256
+
+
+def test_train_bytes_on_one_rank_equal_a_real_step():
+    """At a 1 x 1 mesh the bytes a rank's program moves (``measure``'s
+    ``bytes_accessed``: each op's inputs and outputs, the kernels as they
+    move theirs) on meta DTensors equal the same count over the same step
+    on real CPU tensors, within 0.1%: DTensor's shape propagation adds
+    nothing, and the attention, the loss and LARS count as their kernels
+    on both."""
+    from repro_torch.launch import hlo_stats
+
+    arch = "qwen3-1.7b"
+    shape = ShapeConfig("tiny", 32, 2, "train")
+    cfg = dryrun.arch_for(arch, shape, smoke=True)
+    with dryrun.fake_world(1):
+        mesh, _ = dryrun._mesh(False, {"data": 1, "model": 1})
+        fn, args, _ = dryrun.build_train(arch, cfg, shape, mesh)
+        got = dryrun.measure(fn, args)
+
+    params = {n: p.detach().requires_grad_(True)
+              for n, p in T.init(cfg, seed=0, device="cpu").named_parameters()}
+    groups = convert.leaf_groups(params, cfg)
+    tokens = torch.randint(0, cfg.vocab, (2, 32))
+    gcfg = grad_sync.GradSyncConfig(fuse=False, comm_dtype=torch.float32)
+    mom = lars.init(params)           # made before the step, as the dry run's arguments
+    rec = hlo_stats.Recorder()
+    with rec:
+        tree = T.compute_params(T.params_tree(params), cfg.compute_dtype)
+        logits, aux = T.forward(tree, tokens, cfg)
+        loss = losses.label_smoothing_xent(logits, tokens, 0.1) + 0.01 * aux
+        names = list(params)
+        grads = dict(zip(names, torch.autograd.grad(loss, [params[n] for n in names])))
+        grads = grad_sync.sync_tree(grads, TorusGrid(), gcfg, groups)
+        lars.update(params, grads, mom, lr=1.0, momentum=0.9, groups=groups)
+    want = rec.bytes_accessed
+    assert set(got["kernel_bytes"]) == set(rec.kernel_bytes) == {
+        "flash_attn", "flash_attn_bwd", "ls_xent_fwd", "ls_xent_bwd", "lars_update"}
+    assert want > 0 and abs(got["bytes_accessed"] - want) <= 1e-3 * want, (
+        got["bytes_accessed"], want)
+    for name, n in rec.kernel_bytes.items():
+        assert abs(got["kernel_bytes"][name] - n) <= 1e-3 * n, (name, got["kernel_bytes"], n)
+
+
+def test_attention_counts_as_the_flash_kernels():
+    """Under the recorder the plain attention's bytes are those the flash
+    kernels move: forward q, k, v, o and each row's fp32 lse; backward q,
+    k, v, o, dO and lse in, dq, dk, dv out. Its output, gradients and
+    FLOPs are autograd's over the plain attention."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import hlo_stats
+
+    rng = np.random.default_rng(0)
+    B, S, H, Hkv, D = 2, 16, 4, 2, 8
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).requires_grad_()
+               for s in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    do = torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(np.float32))
+    rec, flops = hlo_stats.Recorder(), FlopCounterMode(display=False)
+    with flops, rec:
+        o = ops.flash_attention(q, k, v, causal=True)
+        grads = torch.autograd.grad(o, (q, k, v), do)
+    plain_flops = FlopCounterMode(display=False)
+    with plain_flops:
+        o_ref = ref.flash_attention_ref(q, k, v, causal=True)
+        want = torch.autograd.grad(o_ref, (q, k, v), do)
+    qb, kvb, lse = B * S * H * D * 4, B * S * Hkv * D * 4, B * H * S * 4
+    assert rec.kernel_bytes == {"flash_attn": 2 * qb + 2 * kvb + lse,
+                                "flash_attn_bwd": 4 * qb + 4 * kvb + lse}
+    assert rec.bytes_accessed == sum(rec.kernel_bytes.values())
+    assert flops.get_total_flops() == plain_flops.get_total_flops() > 0
+    torch.testing.assert_close(o, o_ref, rtol=0, atol=0)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["llama3-405b", "qwen3-1.7b"])
+def test_embedding_gradient_takes_no_index_put(arch):
+    """The table's gradient is added into each rank's vocab rows
+    (``index_add``), not by ``index_put`` on DTensors, whose rule some
+    torch versions refuse for the FSDP table (vocab over ``model``, d
+    over ``data``)."""
+    shape = SHAPES["train_4k"]
+    cfg = dryrun.arch_for(arch, shape, smoke=True)
+    with dryrun.fake_world(8):
+        mesh, _ = dryrun._mesh(False, MESHES["1d"])
+        fn, args, _ = dryrun.build_train(arch, cfg, shape, mesh)
+        ops = dryrun.measure(fn, args)["recorder"].ops
+    assert not {"aten.index_put", "aten.index_put_", "aten._index_put_impl_"} & set(ops), ops
+    assert ops["aten.index_add_"] >= 1
+
+
+def test_row_gathers_and_rglru_gates_equal_the_whole(tmp_path):
+    """On a (data 2, model 2) mesh of four gloo ranks: ``vocab_lookup`` of
+    rows split over ``data`` in a table placed as FSDP, as tensor
+    parallelism and with d over ``model``; ``take_rows`` with its gradient
+    split over the slots and the trailing dim; and the RG-LRU gates with
+    the scan through ``dtensor.elementwise``, placed as the dry run places them,
+    give the plain whole-tensor outputs and gradients (fp32, within 1e-5
+    + 1e-5|x|)."""
+    from _pt_parity import dtensor_rows_body, launch
+
+    from repro_torch.nn import rglru
+
+    rng = np.random.default_rng(1)
+    f32 = np.float32
+    table = rng.standard_normal((8, 6)).astype(f32)
+    ids = rng.integers(0, 8, (4, 5))
+    cot = rng.standard_normal((4, 5, 6)).astype(f32)
+    rows = rng.standard_normal((6, 4)).astype(f32)
+    idx = rng.integers(0, 6, (4, 3))
+    rows_cot = rng.standard_normal((4, 3, 4)).astype(f32)
+    w = 4
+    rg = {"x": rng.standard_normal((2, 6, w)).astype(f32),
+          "rg_kernel": (rng.standard_normal((w, w)) / 2).astype(f32),
+          "ig_kernel": (rng.standard_normal((w, w)) / 2).astype(f32),
+          "rg_bias": rng.standard_normal(w).astype(f32),
+          "ig_bias": rng.standard_normal(w).astype(f32),
+          "lambda_param": rng.standard_normal(w).astype(f32),
+          **{f"cot_{n}": rng.standard_normal((2, 6, w)).astype(f32) for n in ("a", "bx", "h")}}
+    got = launch(dtensor_rows_body, tmp_path, table, ids, cot, rows, idx, rows_cot, rg,
+                 world=4)[0]
+
+    def close(a, b):
+        np.testing.assert_allclose(a, b.detach().numpy(), rtol=1e-5, atol=1e-5)
+
+    t = torch.from_numpy(table).requires_grad_()
+    y = t[torch.from_numpy(ids)]
+    (y * torch.from_numpy(cot)).sum().backward()
+    for name in ("fsdp", "tp", "d_model"):
+        close(got[f"lookup_{name}"]["out"], y)
+        close(got[f"lookup_{name}"]["dtable"], t.grad)
+    r = torch.from_numpy(rows).requires_grad_()
+    y = r[torch.from_numpy(idx)]
+    (y * torch.from_numpy(rows_cot)).sum().backward()
+    close(got["take_rows"]["out"], y)
+    close(got["take_rows"]["drows"], r.grad)
+    p = {n: torch.from_numpy(rg[n]).requires_grad_()
+         for n in ("rg_kernel", "ig_kernel", "rg_bias", "ig_bias", "lambda_param")}
+    x = torch.from_numpy(rg["x"]).requires_grad_()
+    a, bx = rglru._gates(p, x, rglru.RGLRUConfig(d_model=w))
+    h = rglru._scan(a, bx)
+    sum((t * torch.from_numpy(rg[f"cot_{n}"])).sum()
+        for n, t in (("a", a), ("bx", bx), ("h", h))).backward()
+    for key, want in (("a", a), ("bx", bx), ("h", h), ("dx", x.grad),
+                      *((f"d{n}", t.grad) for n, t in p.items())):
+        close(got["rglru"][key], want)
