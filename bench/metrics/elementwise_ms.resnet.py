@@ -1,0 +1,11 @@
+"""Device ms a step outside convolutions and matmuls, NCCL and the port's
+own kernels (LARS, the loss, flash attention): BN's passes, the
+activations, casts, the guard's checks."""
+
+from bench.harness import classes
+
+
+def read(t):
+    if not t.trace.ops:
+        return None
+    return t.trace.ms_per_step(exclude=(classes.MATMUL, classes.NCCL) + classes.PORT)
