@@ -8,7 +8,8 @@ The three building blocks (each usable standalone):
 * :mod:`repro_torch.obs.sink`    -- crash-tolerant JSONL artifacts (append +
   fsync-on-flush, size rotation, run-id + monotonic stamping).
 * :mod:`repro_torch.obs.tracing` -- nested host-side spans with Chrome
-  ``trace_event`` export and an optional ``torch.profiler`` window.
+  ``trace_event`` export and an optional ``torch.profiler`` window; under
+  an active profiler each span is also a ``repro_torch/<span>`` range.
 
 The metric names and the JSONL schema are the reference's, so a reader of
 either package's artifacts reads both.
@@ -16,7 +17,9 @@ either package's artifacts reads both.
 :class:`Telemetry` bundles them for the trainer: one registry + tracer per
 rank and run, an optional sink when ``ObsConfig.metrics_path`` is set, and a
 ``close()`` that emits the final metrics snapshot as a ``"summary"`` row
-and writes the Chrome trace. On more than one rank only rank 0 opens the
+and writes the Chrome trace; its tracer keeps the closed spans only for
+that export (``trace_path`` set), and otherwise drops each on exit, so a
+long run's memory stays flat. On more than one rank only rank 0 opens the
 sink and writes the trace (the reference writes one artifact a run from its
 single controller); every rank keeps its own registry. Everything degrades
 to near-zero overhead when disabled (null registry, null spans, no sink),
@@ -81,7 +84,8 @@ class Telemetry:
         self.rank = rank
         self.registry: MetricsRegistry = MetricsRegistry() if on \
             else NULL_REGISTRY
-        self.tracer = Tracer(enabled=on)
+        self.tracer = Tracer(enabled=on,
+                             keep=bool(on and cfg.trace_path and rank == 0))
         self.sink: JsonlSink | None = None
         if on and cfg.metrics_path and rank == 0:
             self.sink = JsonlSink(cfg.metrics_path, run_id=run_id,

@@ -5,9 +5,19 @@ The trainer wraps each step's phases (``data`` / ``dispatch`` /
 ``sync_wait`` / ``log`` / ``checkpoint``) in ``with tracer.span(...)``,
 giving a per-step wall-time breakdown that the metrics JSONL records and
 :meth:`Tracer.export_chrome_trace` renders as a Chrome/Perfetto-loadable
-``trace_event`` file. The device timeline comes from :func:`torch_profile`,
-which wraps the run in ``torch.profiler.profile`` (the reference wraps it in
+``trace_event`` file; the step function (``train/trainer.py:
+make_train_step``) wraps its layers in ``forward`` / ``backward`` /
+``grad_sync`` / ``guard`` / ``optimizer`` / ``step_metrics``. The device
+timeline comes from :func:`torch_profile`, which wraps the run in
+``torch.profiler.profile`` (the reference wraps it in
 ``jax.profiler.trace``) and writes the kernels' trace beside the spans.
+
+While ``torch.profiler`` records, every span -- a disabled tracer's too --
+also opens a ``record_function`` range named ``repro_torch/<span>``
+(:data:`RANGE_PREFIX`), so the step's layers appear in any profiler trace
+(``ObsConfig.torch_profile_dir``'s, a benchmark's window) on the
+profiler's own clock, around the operators and kernels they launched. With
+the profiler off a span opens none: one flag read.
 
 Spans are exception-safe (the record is closed and flagged ``error`` when
 the body raises) and nest per-thread: depth/parent come from a
@@ -25,6 +35,9 @@ import threading
 import time
 
 import torch
+
+#: the prefix of the ``record_function`` range each span opens under the profiler
+RANGE_PREFIX = "repro_torch/"
 
 
 class Span:
@@ -59,10 +72,15 @@ _NULL_SPAN.duration = 0.0
 
 
 class Tracer:
-    """Collects closed spans; thread-safe, nesting tracked per thread."""
+    """Collects closed spans; thread-safe, nesting tracked per thread.
 
-    def __init__(self, enabled: bool = True):
+    ``keep=False`` times each span and drops it on exit (the caller reads
+    ``sp.duration``): a long run's memory stays flat when nothing exports
+    the spans."""
+
+    def __init__(self, enabled: bool = True, keep: bool = True):
         self.enabled = enabled
+        self.keep = keep
         self._t0 = time.monotonic()
         self._lock = threading.Lock()
         self._closed: list[Span] = []
@@ -78,29 +96,41 @@ class Tracer:
     def span(self, name: str, step: int | None = None, **args):
         """``with tracer.span("sync/bucket3", step=7) as sp:`` -- on exit
         ``sp.duration`` holds the elapsed seconds. Yields a shared null
-        span when the tracer is disabled (duration stays 0.0)."""
-        if not self.enabled:
-            yield _NULL_SPAN
-            return
-        stack = self._stack()
-        sp = Span(name, time.monotonic() - self._t0, depth=len(stack),
-                  parent=stack[-1].name if stack else None,
-                  tid=threading.get_ident(), step=step, args=args)
-        stack.append(sp)
+        span when the tracer is disabled (duration stays 0.0). Under an
+        active ``torch.profiler`` the body runs inside the range
+        ``repro_torch/<name>``, enabled or not."""
+        rf = None
+        if torch.autograd._profiler_enabled():
+            rf = torch.profiler.record_function(RANGE_PREFIX + name)
+            rf.__enter__()
         try:
-            yield sp
-        except BaseException:
-            sp.error = True
-            raise
+            if not self.enabled:
+                yield _NULL_SPAN
+                return
+            stack = self._stack()
+            sp = Span(name, time.monotonic() - self._t0, depth=len(stack),
+                      parent=stack[-1].name if stack else None,
+                      tid=threading.get_ident(), step=step, args=args)
+            stack.append(sp)
+            try:
+                yield sp
+            except BaseException:
+                sp.error = True
+                raise
+            finally:
+                sp.duration = time.monotonic() - self._t0 - sp.t0
+                stack.pop()
+                if self.keep:
+                    with self._lock:
+                        self._closed.append(sp)
         finally:
-            sp.duration = time.monotonic() - self._t0 - sp.t0
-            stack.pop()
-            with self._lock:
-                self._closed.append(sp)
+            if rf is not None:
+                rf.__exit__(None, None, None)
 
     def spans(self, name: str | None = None,
               step: int | None = None) -> list[Span]:
-        """Closed spans, optionally filtered, ordered by start time."""
+        """Closed spans (none with ``keep=False``), optionally filtered,
+        ordered by start time."""
         with self._lock:
             out = list(self._closed)
         if name is not None:
@@ -108,14 +138,6 @@ class Tracer:
         if step is not None:
             out = [s for s in out if s.step == step]
         out.sort(key=lambda s: s.t0)
-        return out
-
-    def phase_breakdown(self, step: int) -> dict[str, float]:
-        """Total seconds per span name for one step (nested spans of the
-        same step each contribute under their own name)."""
-        out: dict[str, float] = {}
-        for sp in self.spans(step=step):
-            out[sp.name] = out.get(sp.name, 0.0) + (sp.duration or 0.0)
         return out
 
     def export_chrome_trace(self, path: str) -> int:

@@ -70,7 +70,7 @@ from repro_torch.core.grad_sync import GradSyncConfig
 from repro_torch.core.topology import TorusGrid
 from repro_torch.obs import ObsConfig, Telemetry
 from repro_torch.obs.metrics import NULL_REGISTRY
-from repro_torch.obs.tracing import torch_profile
+from repro_torch.obs.tracing import Tracer, torch_profile
 from repro_torch.testing.chaos import RETRYABLE
 from repro_torch.train import checkpoint
 from repro_torch.train.elastic import ElasticConfig, PermanentFailure, Supervisor
@@ -135,7 +135,7 @@ def _rank_mean(grid: TorusGrid, *values: torch.Tensor) -> list[torch.Tensor]:
 
 
 def make_train_step(loss_fn: Callable, cfg: TrainerConfig, grid: TorusGrid | None = None,
-                    groups=None):
+                    groups=None, tracer: Tracer | None = None):
     """Build the step ``(state, batch, epoch, global_batch) -> (state, metrics)``.
 
     ``loss_fn(params, batch, grid) -> (loss, aux)`` computes the LOCAL mean
@@ -147,10 +147,19 @@ def make_train_step(loss_fn: Callable, cfg: TrainerConfig, grid: TorusGrid | Non
     (``grad_sync.resolve_sync_config``; ``Trainer.run`` does it).
     ``groups``: the reference's stacked leaves (``convert.leaf_groups``), for
     the sync's plan and LARS's trust ratios; None: one a leaf (the ResNet).
+
+    The step's layers run in spans of ``tracer`` (``Trainer.run`` passes its
+    telemetry's; None: a disabled one) that tile the step: ``forward``,
+    ``backward``, ``grad_sync``, ``guard`` (the unscale, the rank mean and
+    the finite flag), ``optimizer`` (LARS), ``guard`` again (the selects and
+    the loss scale's update) and ``step_metrics``. Under ``torch.profiler``
+    each is a ``repro_torch/<span>`` range around the kernels it launched,
+    whatever the tracer records.
     """
     grid = grid if grid is not None else topology.world_grid()
     schedule = sched_lib.make(cfg.schedule)
     guard = cfg.guard
+    span = (tracer if tracer is not None else Tracer(enabled=False)).span
 
     def step(state: TrainState, batch, epoch: float, global_batch: int):
         scale = state.loss_scale
@@ -158,60 +167,67 @@ def make_train_step(loss_fn: Callable, cfg: TrainerConfig, grid: TorusGrid | Non
         params = {k: p.detach().requires_grad_(True)
                   for k, p in state.params.items()}
         with torch.enable_grad():
-            loss, aux = loss_fn(params, batch, grid)
-            tot = loss + cfg.aux_weight * aux
+            with span("forward"):
+                loss, aux = loss_fn(params, batch, grid)
+                tot = loss + cfg.aux_weight * aux
+                if guard.enabled:
+                    tot = tot * scale.to(tot.dtype)
+            with span("backward"):
+                grads = torch.autograd.grad(tot, [params[k] for k in names])
+        with span("grad_sync"):
+            grads = grad_sync_lib.sync_tree(dict(zip(names, grads)), grid, cfg.grad_sync,
+                                            groups)
+        with span("guard"):
             if guard.enabled:
-                tot = tot * scale.to(tot.dtype)
-            grads = torch.autograd.grad(tot, [params[k] for k in names])
-        grads = grad_sync_lib.sync_tree(dict(zip(names, grads)), grid, cfg.grad_sync,
-                                        groups)
-        if guard.enabled:
-            inv = 1.0 / scale   # exact for the power-of-two scales we use
-            grads = {k: g * inv.to(g.dtype) for k, g in grads.items()}
+                inv = 1.0 / scale   # exact for the power-of-two scales we use
+                grads = {k: g * inv.to(g.dtype) for k, g in grads.items()}
 
-        # all-finite flag over the rank-mean loss and the synced grads: the
-        # all-reduce carried any rank's NaN/Inf to every rank, so the flag
-        # (and the skip) is the same on all of them
-        loss_m, aux_m = _rank_mean(grid, loss, aux)
-        nonfinite = torch.stack([(~torch.isfinite(g)).sum()
-                                 for g in grads.values()]).sum()
-        finite = torch.isfinite(loss_m) & (nonfinite == 0)
+            # all-finite flag over the rank-mean loss and the synced grads: the
+            # all-reduce carried any rank's NaN/Inf to every rank, so the flag
+            # (and the skip) is the same on all of them
+            loss_m, aux_m = _rank_mean(grid, loss, aux)
+            nonfinite = torch.stack([(~torch.isfinite(g)).sum()
+                                     for g in grads.values()]).sum()
+            finite = torch.isfinite(loss_m) & (nonfinite == 0)
 
         lr = schedule.lr(epoch)
         mom = schedule.mom(epoch, global_batch)
-        new_params, new_opt = lars_lib.update(
-            state.params, grads, state.opt_state, lr=lr, momentum=mom,
-            cfg=cfg.lars, groups=groups)
+        with span("optimizer"):
+            new_params, new_opt = lars_lib.update(
+                state.params, grads, state.opt_state, lr=lr, momentum=mom,
+                cfg=cfg.lars, groups=groups)
 
         if guard.enabled:
-            # skip the update on non-finite steps: params/momentum pass
-            # through unchanged (torch.where selects bit-exactly on True)
-            new_params = {k: torch.where(finite, p, state.params[k])
-                          for k, p in new_params.items()}
-            old_m = state.opt_state["momentum"]
-            new_opt = {"momentum": {k: torch.where(finite, v, old_m[k])
-                                    for k, v in new_opt["momentum"].items()}}
-            good = torch.where(finite, state.good_steps + 1,
-                               torch.zeros_like(state.good_steps))
-            grow = finite & (good >= guard.growth_interval)
-            new_scale = torch.where(
-                finite,
-                torch.where(grow, (scale * guard.growth_factor).clamp(
-                    max=guard.max_scale), scale),
-                (scale * guard.backoff_factor).clamp(min=guard.min_scale))
-            good = torch.where(grow, torch.zeros_like(good), good).to(torch.int32)
+            with span("guard"):
+                # skip the update on non-finite steps: params/momentum pass
+                # through unchanged (torch.where selects bit-exactly on True)
+                new_params = {k: torch.where(finite, p, state.params[k])
+                              for k, p in new_params.items()}
+                old_m = state.opt_state["momentum"]
+                new_opt = {"momentum": {k: torch.where(finite, v, old_m[k])
+                                        for k, v in new_opt["momentum"].items()}}
+                good = torch.where(finite, state.good_steps + 1,
+                                   torch.zeros_like(state.good_steps))
+                grow = finite & (good >= guard.growth_interval)
+                new_scale = torch.where(
+                    finite,
+                    torch.where(grow, (scale * guard.growth_factor).clamp(
+                        max=guard.max_scale), scale),
+                    (scale * guard.backoff_factor).clamp(min=guard.min_scale))
+                good = torch.where(grow, torch.zeros_like(good), good).to(torch.int32)
         else:
             new_scale, good = state.loss_scale, state.good_steps
 
-        metrics = {
-            "loss": loss_m,
-            "aux": aux_m,
-            "lr": lr, "momentum": mom,
-            "grad_norm": _norm_all(grads.values()),
-            "skipped": (~finite).to(torch.int32),
-            "nonfinite_count": nonfinite.to(torch.int32),
-            "loss_scale": new_scale,
-        }
+        with span("step_metrics"):
+            metrics = {
+                "loss": loss_m,
+                "aux": aux_m,
+                "lr": lr, "momentum": mom,
+                "grad_norm": _norm_all(grads.values()),
+                "skipped": (~finite).to(torch.int32),
+                "nonfinite_count": nonfinite.to(torch.int32),
+                "loss_scale": new_scale,
+            }
         new_state = TrainState(new_params, new_opt, state.step + 1,
                                new_scale, good)
         return new_state, metrics
@@ -365,7 +381,8 @@ class Trainer:
                     grad_sync_lib.record_bucket_metrics(
                         state.params, run_cfg.grad_sync, tel.registry, self.leaf_groups)
                     # ONE step fn for every stage of this attempt
-                    fn = make_train_step(self.loss_fn, run_cfg, grid, self.leaf_groups)
+                    fn = make_train_step(self.loss_fn, run_cfg, grid, self.leaf_groups,
+                                         tracer=tel.tracer)
                     try:
                         state = self._run_steps(
                             fn, state, run_cfg, grid, data_fn, start_step,
@@ -394,7 +411,12 @@ class Trainer:
         Each step runs inside a ``step`` span with ``data`` / ``dispatch`` /
         ``sync_wait`` / ``log`` / ``checkpoint`` children covering its full
         body, so the phase durations account for (nearly all of) the step's
-        wall time.
+        wall time; ``dispatch`` holds the step function's layer spans
+        (``make_train_step``). Under ``torch.profiler`` (``ObsConfig.
+        torch_profile_dir``, or a caller's) every span is a
+        ``repro_torch/<span>`` range in the trace, so the kernels and the
+        device's idle gaps can be put down to the layer or phase that the
+        training thread was in.
         """
         reg = tel.registry
         saves = bool(self.checkpoint_dir) and grid.world.index == 0

@@ -272,7 +272,8 @@ def test_span_nesting_depth_and_parent(pkg):
     assert outer.t0 <= inner.t0 and inner.t1 <= outer.t1 + 1e-6
     assert outer.duration >= inner.duration
     assert tr.spans("sync/bucket3", step=3) == [inner]
-    assert set(tr.phase_breakdown(3)) == {"step", "sync/bucket3"}
+    if pkg is PACKAGES["jax"]:
+        assert set(tr.phase_breakdown(3)) == {"step", "sync/bucket3"}
 
 
 def test_span_exception_safety(pkg):
@@ -292,6 +293,24 @@ def test_disabled_tracer_yields_null_span(pkg):
     with tr.span("x") as sp:
         pass
     assert sp.duration == 0.0 and tr.spans() == []
+
+
+def test_telemetry_tracer_keeps_spans_only_for_the_chrome_export(tmp_path):
+    """The port's tracer drops each closed span unless the Chrome export
+    will read it, so a long run's memory stays flat; a bare tracer keeps
+    them."""
+    def spans_kept(tracer):
+        for k in range(3):
+            with tracer.span("step", step=k) as sp:
+                pass
+            assert sp.duration > 0.0
+        return len(tracer.spans())
+
+    assert spans_kept(tobs.Tracer()) == 3
+    assert spans_kept(tobs.Telemetry(tobs.ObsConfig()).tracer) == 0
+    traced = tobs.ObsConfig(trace_path=str(tmp_path / "t.json"))
+    assert spans_kept(tobs.Telemetry(traced).tracer) == 3
+    assert spans_kept(tobs.Telemetry(traced, rank=1).tracer) == 0
 
 
 def test_chrome_trace_export_loadable_and_nested(pkg, tmp_path):
@@ -321,6 +340,40 @@ def test_torch_profile_writes_a_trace_of_the_window(tmp_path):
         torch.ones(64, 64) @ torch.ones(64, 64)
     doc = json.load(open(tmp_path / "prof" / "torch_trace_rank3.json"))
     assert any("mm" in e.get("name", "") for e in doc["traceEvents"])
+
+
+def _record_function_spy(monkeypatch):
+    """Count the ``record_function`` ranges the port opens."""
+    opened = []
+    real = torch.profiler.record_function
+
+    def spy(name, *args, **kw):
+        opened.append(name)
+        return real(name, *args, **kw)
+    monkeypatch.setattr(torch.profiler, "record_function", spy)
+    return opened
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_spans_open_profiler_ranges_only_under_the_profiler(enabled, monkeypatch):
+    """A span opens no ``record_function`` with the profiler off; under an
+    active profiler it opens ``repro_torch/<name>``, also when the tracer
+    records nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    opened = _record_function_spy(monkeypatch)
+    tr = tobs.Tracer(enabled=enabled)
+    with tr.span("step", step=0):
+        with tr.span("guard"):
+            pass
+    assert opened == []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tr.span("step", step=1):
+            with tr.span("guard"):
+                torch.ones(4).sum()
+    assert opened == ["repro_torch/step", "repro_torch/guard"]
+    assert len(tr.spans()) == (4 if enabled else 0)
+    names = [e.name for e in prof.events()]
+    assert "repro_torch/step" in names and "repro_torch/guard" in names
 
 
 # -------------------------------------------------- fingerprint/telemetry --
@@ -539,3 +592,85 @@ def test_trainer_telemetry_end_to_end(tmp_path):
     mirrored = [r for r in rows if r["kind"] in ("metric", "event")
                 and r.get("metric") != "step_phases"]
     assert len(mirrored) == len(history)
+
+
+# span -> the span it nests in (None: top level), as the trainer nests them
+_NESTING = {"step": None, "data": "step", "dispatch": "step", "sync_wait": "step",
+            "log": "step", "checkpoint": "step", "forward": "dispatch",
+            "backward": "dispatch", "grad_sync": "dispatch", "guard": "dispatch",
+            "optimizer": "dispatch", "step_metrics": "dispatch"}
+
+
+def _enclosing(e, ranges):
+    """The innermost of ``ranges`` on e's thread that holds ``e``."""
+    holds = [r for r in ranges if r is not e and r["tid"] == e["tid"]
+             and r["ts"] <= e["ts"] and e["ts"] + e["dur"] <= r["ts"] + r["dur"]]
+    return max(holds, key=lambda r: r["ts"], default=None)
+
+
+@pytest.mark.parametrize("obs_enabled", [True, False])
+def test_trainer_step_layers_are_profiler_ranges(obs_enabled, tmp_path, monkeypatch):
+    """``Trainer.run`` of two steps under ``torch.profiler`` (CPU): every
+    span of the trainer loop and of the step function is a
+    ``repro_torch/<span>`` range, nested as the tracer nests them, with the
+    guard's selects and finite checks inside ``repro_torch/guard`` and the
+    sync's bf16 casts inside ``repro_torch/grad_sync``; telemetry off, the
+    ranges are still there. Without the profiler no range is opened."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.batch_control import build_plan
+    from repro_torch.core.schedules import BatchSchedule, BatchStage
+    from repro_torch.train.state import TrainState
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    gen = torch.Generator().manual_seed(0)
+    params = {f"layer{i}.kernel": torch.randn(16, 16, generator=gen) / 4 for i in range(2)}
+
+    def loss_fn(p, batch, grid):
+        x, y = batch
+        h = torch.tanh(torch.tanh(x @ p["layer0.kernel"]) @ p["layer1.kernel"])
+        return torch.mean((h - y) ** 2), torch.zeros(())
+
+    xs = torch.randn(8, 16, generator=gen)
+
+    def data_fn(i, gb):
+        return xs[:gb], torch.tanh(xs[:gb])
+
+    tcfg = TrainerConfig(grad_sync=tgs.GradSyncConfig(strategy="torus2d",
+                                                      comm_dtype=torch.bfloat16),
+                         obs=tobs.ObsConfig(enabled=obs_enabled))
+    trainer = Trainer(loss_fn, tcfg, build_plan(BatchSchedule((BatchStage(0, 1.0, 8),)),
+                                                dataset_size=64, n_workers=1, max_steps=2),
+                      data_fn)
+    opened = _record_function_spy(monkeypatch)
+    state, _ = trainer.run(TrainState.create(params), log=lambda *a: None)
+    assert state.step == 2 and opened == []
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        trainer.run(state, log=lambda *a: None)
+    path = str(tmp_path / "prof.json")
+    prof.export_chrome_trace(path)
+    events = [e for e in json.load(open(path))["traceEvents"] if e.get("ph") == "X"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e["name"].startswith(tobs.tracing.RANGE_PREFIX)]
+    counts = {}
+    for e in ranges:
+        name = e["name"][len(tobs.tracing.RANGE_PREFIX):]
+        counts[name] = counts.get(name, 0) + 1
+        parent = _enclosing(e, ranges)
+        want = _NESTING[name]
+        assert (parent and parent["name"]) == (want and tobs.tracing.RANGE_PREFIX + want), e
+    assert counts == {**{k: 2 for k in _NESTING}, "guard": 4}
+
+    def ops_in(span, names):
+        found = set()
+        for e in events:
+            if e.get("cat") == "cpu_op" and e["name"] in names:
+                parent = _enclosing(e, ranges)
+                if parent and parent["name"] == tobs.tracing.RANGE_PREFIX + span:
+                    found.add(e["name"])
+        return found
+
+    assert ops_in("guard", {"aten::where", "aten::isfinite"}) == {"aten::where",
+                                                                  "aten::isfinite"}
+    assert ops_in("grad_sync", {"aten::to", "aten::_to_copy"})
