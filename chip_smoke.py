@@ -16,8 +16,12 @@
    D 256 with 16 query heads on one kv head under a band that skips, and
    unmasked over 1601 keys, a multiple of no tile), bf16 through the bf16
    tensor-core kernel and fp32 through the 3xTF32 one (the wrapper picks by
-   dtype), each under ``kernels/ref.py::flash_attention_tol``; and the
-   flash backward (``csrc/flash_attn_bwd.cu``, bf16;
+   dtype), each under ``kernels/ref.py::flash_attention_tol``; the BN
+   kernels (``csrc/batchnorm.cu``) at every distinct BN of ResNet-50 at 256
+   images in bf16 and of the tiny config in fp32
+   (``repro_torch.launch.profile_bn.check``: the two sums within 2^-14 of
+   their terms' magnitudes, every other output bit for bit, a second call
+   the same bytes); and the flash backward (``csrc/flash_attn_bwd.cu``, bf16;
    ``csrc/flash_attn_bwd_f32.cu``, fp32) in both dtypes against its plain
    version from the forward kernel's o and lse, under
    ``ref.flash_attention_bwd_tol``, at Qwen3-1.7B's training shape (4 x
@@ -35,7 +39,10 @@
    version and, where one exists, the single PyTorch call computing the
    same function; LARS as the whole ``core/lars.update`` of one step;
    ``ls_xent`` through ``repro_torch.launch.profile_xent`` at
-   (32 | 64, 1000) fp32 and (4096, 151936) fp32 and bf16; flash through
+   (32 | 64, 1000) fp32 and (4096, 151936) fp32 and bf16; the BN kernels
+   over the 53 BNs of a ResNet-50 step at 256 images beside their two-pass
+   bytes' bound, their plain versions, the earlier autograd chain and
+   ``F.batch_norm`` (``profile_bn.time_call``); flash through
    ``repro_torch.launch.profile_flash``, the fp32 kernel at the smoke
    config's shape and at the Qwen3-1.7B prefill shape, the bf16 kernel also
    at the other served archs' prefill shapes (``profile_flash.SERVE_SHAPES``),
@@ -233,6 +240,71 @@ def gpu_line() -> str:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+BN_KERNELS = ("bn_fwd_stats", "bn_fwd_apply", "bn_bwd_sums", "bn_bwd_dx")
+
+
+def bn_launches(n: int) -> dict:
+    """Each BN kernel's count, ``n``: one launch a BN a pass."""
+    return {name: n for name in BN_KERNELS}
+
+
+def check_bn(torch, gen) -> dict:
+    """The BN kernels against their plain versions at every distinct BN of
+    ResNet-50 at 256 images (bf16) and of the tiny config (fp32), through
+    ``profile_bn.check``: the two sums within their tolerance, every other
+    output bit for bit, a second call the same bytes. Returns the worst
+    err/tol of the sums and their max abs error."""
+    from repro_torch.launch import profile_bn
+    from repro_torch.models import resnet
+
+    worst = {"stats": 0.0, "bwd_sums": 0.0, "max_abs_err": 0.0}
+    n = 0
+    for cfg, batch, dtype in ((resnet.ResNetConfig.resnet50(), 256, torch.bfloat16),
+                              (resnet.ResNetConfig.tiny(), 8, torch.float32)):
+        for c, _ in profile_bn.distinct(profile_bn.calls(cfg, batch)):
+            r = profile_bn.check(c, dtype, gen)
+            worst["stats"] = max(worst["stats"], r["stats_err_over_tol"])
+            worst["bwd_sums"] = max(worst["bwd_sums"], r["bwd_sums_err_over_tol"])
+            worst["max_abs_err"] = max(worst["max_abs_err"], r["sums_max_abs_err"])
+            n += 1
+            if not r["ok"]:
+                fail(f"batchnorm kernels disagree with their plain versions: {r}")
+    print(f"check batchnorm: {n} shapes (ResNet-50's 16 at 256 images in bf16, the tiny "
+          f"config's in fp32), worst err/tol stats {worst['stats']:.3g}, backward sums "
+          f"{worst['bwd_sums']:.3g} (tol {profile_bn.SUM_TOL:g} of the terms' magnitudes), "
+          f"max abs err {worst['max_abs_err']:.3e}; every other output bit for bit, a second "
+          f"call the same bytes")
+    return worst
+
+
+def time_bn(torch, gen) -> dict:
+    """The BN kernels at each distinct BN of ResNet-50 at 256 images, bf16
+    (``profile_bn.time_call``), and their sum over the step's 53 BNs beside
+    the two-pass bytes' bound, the plain versions, the earlier autograd
+    chain and ``F.batch_norm``."""
+    from repro_torch.launch import profile_bn
+    from repro_torch.models import resnet
+
+    cs = profile_bn.distinct(profile_bn.calls(resnet.ResNetConfig.resnet50(), 256))
+    rows = []
+    for c, n in cs:
+        rows.append({**profile_bn.time_call(c, torch.bfloat16, gen), "count": n})
+        print(f"time batchnorm {c.name} x{n}: {json.dumps(rows[-1])}")
+    t = profile_bn.totals(rows, [n for _, n in cs])
+    print(f"time batchnorm, the 53 BNs of a ResNet-50 step at 256 images: kernels "
+          f"{t['kernels_ms']:.3f} ms (forward {t['fwd_ms']:.3f}, backward {t['bwd_ms']:.3f}), "
+          f"bound {t['bound_ms']:.3f} ms ({t['fwd_bytes'] + t['bwd_bytes']} B at 3.35 TB/s: "
+          f"{100 * t['of_bound']:.1f}% of it), plain {t['plain_fwd_ms'] + t['plain_bwd_ms']:.3f}, "
+          f"earlier chain {t['chain_fwd_bwd_ms']:.3f}, F.batch_norm and its epilogue "
+          f"{t['library_fwd_bwd_ms']:.3f}")
+    return {"ms": t["kernels_ms"], "eager_ms": None,
+            "plain_ms": t["plain_fwd_ms"] + t["plain_bwd_ms"],
+            "library_ms": t["library_fwd_bwd_ms"], "chain_ms": t["chain_fwd_bwd_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "at": "the 53 BNs of one ResNet-50 step at 256 images, bf16, forward and backward",
+            "shapes": rows}
 
 
 def check_flash(torch, dev, gen) -> dict:
@@ -444,7 +516,7 @@ def train_lm(torch, dev, grid, card: str, stages=LM_STAGES, remat: bool = False)
             fail(f"{tag} step {r['step']}: loss {r['loss']}, skipped {r['skipped']}")
     want = {"lars_update": 2 * steps, "ls_xent_fwd": steps, "ls_xent_bwd": steps,
             "flash_attn": (2 if remat else 1) * n_attn * steps, "flash_attn_f32": 0,
-            "flash_attn_bwd": n_attn * steps, "flash_attn_bwd_f32": 0}
+            "flash_attn_bwd": n_attn * steps, "flash_attn_bwd_f32": 0, **bn_launches(0)}
     if counts != want:
         fail(f"{tag} training launched {counts}, want {want}")
     medians = profile_trainer.stage_medians(plan, rows)
@@ -631,7 +703,7 @@ def serve(torch, dev, arch: str) -> dict:
           f"peak device memory {peak / 2**30:.2f} GiB")
     want = {"lars_update": 0, "ls_xent_fwd": 0, "ls_xent_bwd": 0,
             "flash_attn": n_attn, "flash_attn_f32": 0, "flash_attn_bwd": 0,
-            "flash_attn_bwd_f32": 0}
+            "flash_attn_bwd_f32": 0, **bn_launches(0)}
     if counts != want:
         fail(f"generate launched {counts}, want {want}")
     if len(results) != len(prompts) or any(len(r) != NEW for r in results):
@@ -888,7 +960,7 @@ def supervised(torch, grid, model, data_fn, loss_fn, plan, sync, card: str) -> d
                 fail(f"the chaos or resumed run differs from the clean run: {verdict}")
             want = {"lars_update": 2 * total, "ls_xent_fwd": total, "ls_xent_bwd": total,
                     "flash_attn": 0, "flash_attn_f32": 0, "flash_attn_bwd": 0,
-                    "flash_attn_bwd_f32": 0}
+                    "flash_attn_bwd_f32": 0, **bn_launches(53 * total)}
             if counts != want:
                 fail(f"supervised launches {counts}, want {want}")
 
@@ -1218,6 +1290,7 @@ def run(torch, store_dir: str) -> int:
           f"+ {XENT_FWD_TOL[1]:g}|ref|), bwd max_abs_err {bwd_err:.3e}, worst "
           f"err/tol {bwd_ratio:.3g} (tol {XENT_BWD_TOL})")
 
+    bn_err = check_bn(torch, gen)
     flash_err = check_flash(torch, dev, gen)
     t0 = time.perf_counter()
     flash_bwd_err = check_flash_bwd(torch, gen)
@@ -1256,6 +1329,7 @@ def run(torch, store_dir: str) -> int:
         for name, t in xent_times[rows, vocab, dtype].items():
             print(f"time {name} ({what}): {t}")
 
+    bn_time = time_bn(torch, gen)
     t0 = time.perf_counter()
     flash_time = time_flash(torch, gen)
     print(f"phase time flash (forward and backward): {time.perf_counter() - t0:.1f} s")
@@ -1302,7 +1376,7 @@ def run(torch, store_dir: str) -> int:
             fail(f"step {row['step']} was skipped by the guard")
     want = {"lars_update": 2 * steps, "ls_xent_fwd": steps, "ls_xent_bwd": steps,
             "flash_attn": 0, "flash_attn_f32": 0, "flash_attn_bwd": 0,
-            "flash_attn_bwd_f32": 0}
+            "flash_attn_bwd_f32": 0, **bn_launches(53 * steps)}
     if counts != want:
         fail(f"launch counts {counts}, want {want}")
     for st in profile_trainer.stage_medians(plan, history):
@@ -1434,10 +1508,15 @@ def run(torch, store_dir: str) -> int:
                            "src/repro/kernels/flash_attn.py:34", flash_bwd_err["bf16"][0]),
         "flash_attn_bwd_f32": ("cuda", "src/repro_torch/csrc/flash_attn_bwd_f32.cu",
                                "src/repro/kernels/flash_attn.py:34", flash_bwd_err["fp32"][0]),
+        # the four BN kernels as one row: no TPU kernel, XLA fuses the JAX
+        # package's BN (src/repro/nn/layers.py:batchnorm)
+        "batchnorm": ("cuda", "src/repro_torch/csrc/batchnorm.cu", "none",
+                      bn_err["max_abs_err"]),
     }
     main_rows = plan.stages[-1].global_batch
     measured = {"lars_update": timing["lars_update"],
-                **xent_times[main_rows, 1000, torch.float32], **flash_time}
+                **xent_times[main_rows, 1000, torch.float32], **flash_time,
+                "batchnorm": bn_time}
     # ls_xent also at Qwen3-1.7B's logits, beside its main-path entry
     xent_lm = {}
     for (rows, vocab, dtype), pair in xent_times.items():
@@ -1451,6 +1530,8 @@ def run(torch, store_dir: str) -> int:
     # five full-width archs in bf16, or the fp32 smoke configs' prefills
     by_path = {name: {"resnet50": counts[name], "supervised": sup["counts"][name]}
                for name in ("lars_update", "ls_xent_fwd", "ls_xent_bwd")}
+    by_path["batchnorm"] = {"resnet50": sum(counts[k] for k in BN_KERNELS),
+                            "supervised": sum(sup["counts"][k] for k in BN_KERNELS)}
     remat_runs = {f"{LM_ARCH} training remat {r['stages'][0]['global_batch']} x {LM_SEQ}": r
                   for r in lm_remat}
     for name in ("lars_update", "ls_xent_fwd", "ls_xent_bwd"):
@@ -1465,6 +1546,7 @@ def run(torch, store_dir: str) -> int:
                 "flash_attn_f32": f32_launches, "flash_attn_bwd_f32": bwd_f32_launches}
     # the flash checks' worst err/tol over their shapes, by kernel
     check_ratio = {"flash_attn": flash_err["bf16"][1], "flash_attn_f32": flash_err["fp32"][1],
+                   "batchnorm": max(bn_err["stats"], bn_err["bwd_sums"]),
                    "flash_attn_bwd": flash_bwd_err["bf16"][1],
                    "flash_attn_bwd_f32": flash_bwd_err["fp32"][1]}
     norm_ratio = {"flash_attn_bwd": flash_bwd_err["bf16"][2],
@@ -1484,7 +1566,7 @@ def run(torch, store_dir: str) -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
             **{k: t[k] for k in ("fma_bound_ms", "tflops_per_s", "library_fwd_bwd_ms",
-                                 "prefill", "train", "serve") if k in t},
+                                 "chain_ms", "prefill", "train", "serve") if k in t},
             **({"lm": xent_lm[name]} if name in xent_lm else {}),
             **({"worst_err_over_tol": check_ratio[name]} if name in check_ratio else {}),
             **({"worst_norm_over_limit": norm_ratio[name]} if name in norm_ratio else {}),

@@ -50,6 +50,14 @@ SIGNATURES = {
     "flash_attn_tc_fwd": _FLASH,   # bf16 on the tensor cores, csrc/flash_attn_tc.cu
     "flash_attn_bwd": _FLASH_BWD,      # bf16, csrc/flash_attn_bwd.cu
     "flash_attn_bwd_f32": _FLASH_BWD,  # fp32, csrc/flash_attn_bwd_f32.cu
+    # csrc/batchnorm.cu: x, dtype, shape (7 long longs), ..., stream
+    "bn_fwd_stats": (_P, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_float, _P),
+    "bn_fwd_apply": (_P, ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_float,
+                     ctypes.c_int, _P),
+    "bn_bwd_sums": (_P, ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_float,
+                    ctypes.c_int, _P, _P, _P, _P, _P),
+    "bn_bwd_dx": (_P, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
+                  ctypes.c_float, ctypes.c_int, _P, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -12,6 +12,8 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ref, traffic
+from repro_torch.kernels.batchnorm import (BatchNorm, bn_bwd_dx_cuda, bn_bwd_sums_cuda,
+                                           bn_fwd_apply_cuda, bn_fwd_stats_cuda)
 from repro_torch.kernels.flash_attn import (FlashAttention, check_every_row_attends,
                                             flash_attention_bwd_bf16, flash_attention_bwd_f32,
                                             flash_attention_cuda, flash_attention_f32,
@@ -23,7 +25,9 @@ from repro_torch.utils import dtensor
 _WRAPPERS = {"lars_update": lars_update_cuda, "ls_xent_fwd": ls_xent_fwd_cuda,
              "ls_xent_bwd": ls_xent_bwd_cuda, "flash_attn": flash_attention_tc,
              "flash_attn_f32": flash_attention_f32, "flash_attn_bwd": flash_attention_bwd_bf16,
-             "flash_attn_bwd_f32": flash_attention_bwd_f32}
+             "flash_attn_bwd_f32": flash_attention_bwd_f32, "bn_fwd_stats": bn_fwd_stats_cuda,
+             "bn_fwd_apply": bn_fwd_apply_cuda, "bn_bwd_sums": bn_bwd_sums_cuda,
+             "bn_bwd_dx": bn_bwd_dx_cuda}
 
 
 def lars_update_leaves(ps, gs, vs, lars, *, lr, mom, eta, weight_decay, eps,
@@ -101,6 +105,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return FlashAttention.apply(q, k, v, causal, window, softcap, scale)
     return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap,
                                 scale=scale)
+
+
+def batchnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+              stats=None, grid=None, eps: float = 1e-5, relu: bool = False,
+              residual: torch.Tensor | None = None, return_stats: bool = False):
+    """BN over channel dim 1, then ``+ residual`` and the ReLU where asked,
+    differentiable in x, scale, bias and the residual (``kernels/batchnorm.py``).
+    The scale and bias (fp32 masters) are rounded to x's dtype.
+
+    ``stats`` (mean, var) are eval's constants; otherwise batch statistics,
+    over the ranks of ``grid`` (a built ``TorusGrid``) when it has more than
+    one. ``return_stats`` also returns the (mean, var) used, fp32. On the
+    card: two launches forward and two backward, whatever the epilogue.
+    """
+    group, ranks = None, 1
+    if grid is not None and grid.size > 1:
+        group, ranks = grid.world.group, grid.size
+    mean, var = (None, None) if stats is None else stats
+    y, mv = BatchNorm.apply(x, scale, bias, residual, mean, var, eps, relu, group, ranks)
+    return (y, (mv[0], mv[1])) if return_stats else y
 
 
 def launch_counts() -> dict[str, int]:

@@ -7,6 +7,9 @@ no yardstick of speed.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 
@@ -379,3 +382,129 @@ def flash_attention_bwd_errors(got, want, q, k, v, o, lse, dout, **kw) -> list[d
                     "err_over_tol": (err.abs() / b).max().item(),
                     "norm_over_limit": err.norm().item() / lim})
     return out
+
+
+# -- batch norm (csrc/batchnorm.cu) ------------------------------------------------
+# Channel dim 1, every other dim a row; statistics are (2, C) fp32 tensors
+# ``mv`` = (mean, var) and ``sums`` = two per-channel sums. ``mask``: 0 no
+# ReLU, 1 the ReLU's mask recomputed from x, 2 read from the stored output.
+
+
+def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    shape = [1] * x.dim()
+    shape[1] = -1
+    return v.reshape(shape)
+
+
+def _rows_of(x: torch.Tensor) -> list[int]:
+    return [d for d in range(x.dim()) if d != 1]
+
+
+def bn_stats_ref(x: torch.Tensor) -> torch.Tensor:
+    """The forward stats kernel's sums: (Σx, Σx²) over the rows, fp32."""
+    xf = x.float()
+    return torch.stack([xf.sum(_rows_of(x)), (xf * xf).sum(_rows_of(x))])
+
+
+@functools.lru_cache(maxsize=None)
+def inv_count(count: int) -> float:
+    """1/count rounded once to fp32: what the kernels multiply a sum by to
+    take its mean (so that the plain versions multiply by the same number)."""
+    return float(np.float32(1.0) / np.float32(count))
+
+
+def bn_moments_ref(sums: torch.Tensor, count: int) -> torch.Tensor:
+    """mv = (mean, var) from (Σx, Σx²) over ``count`` rows: E[x²] - mean²."""
+    inv = inv_count(count)
+    mean = sums[0] * inv
+    return torch.stack([mean, sums[1] * inv - mean * mean])
+
+
+def _in(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A parameter rounded to x's dtype, in fp32: what the kernels load."""
+    return p.to(x.dtype).float()
+
+
+def _bn_affine(x, mv, scale, eps: float):
+    """(mean, a = rsqrt(var + eps), a * s), fp32, s rounded to x's dtype."""
+    rs = torch.rsqrt(mv[1] + eps)
+    return mv[0], rs, rs * _in(scale, x)
+
+
+def _bn_value(x, mv, scale, bias, eps: float) -> torch.Tensor:
+    """T((x - mean) * (a * s) + b), rounded to x's dtype T."""
+    mean, _, inv = _bn_affine(x, mv, scale, eps)
+    return ((x.float() - _per_channel(mean, x)) * _per_channel(inv, x)
+            + _per_channel(_in(bias, x), x)).to(x.dtype)
+
+
+def bn_apply_ref(x, mv, scale, bias, *, eps: float, residual=None,
+                 relu: bool = False) -> torch.Tensor:
+    """The apply kernel: the BN's value rounded to x's dtype; with a
+    residual, that plus the residual in fp32, rounded again; the ReLU last
+    (``y <= 0`` gives 0, NaN passes)."""
+    y = _bn_value(x, mv, scale, bias, eps)
+    if residual is not None:
+        y = (y.float() + residual.float()).to(x.dtype)
+    return torch.where(y <= 0, torch.zeros_like(y), y) if relu else y
+
+
+def bn_grad_in_ref(x, dy, y, mv, scale, bias, *, eps: float, mask: int) -> torch.Tensor:
+    """dy where the ReLU passed it (threshold_backward's: an output <= 0
+    gives 0), from the value recomputed from x (mask 1) or the stored
+    output y (mask 2); dy itself without a ReLU (mask 0)."""
+    if mask == 0:
+        return dy
+    v = _bn_value(x, mv, scale, bias, eps) if mask == 1 else y
+    return torch.where(v <= 0, torch.zeros_like(dy), dy)
+
+
+def bn_bwd_sums_ref(x, dy, y, mv, scale, bias, *, eps: float, mask: int) -> torch.Tensor:
+    """The backward sums kernel: (Σg, Σg·x̂), fp32, x̂ = (x - mean) a."""
+    g = bn_grad_in_ref(x, dy, y, mv, scale, bias, eps=eps, mask=mask).float()
+    mean, rs, _ = _bn_affine(x, mv, scale, eps)
+    xh = (x.float() - _per_channel(mean, x)) * _per_channel(rs, x)
+    return torch.stack([g.sum(_rows_of(x)), (g * xh).sum(_rows_of(x))])
+
+
+def bn_bwd_dx_ref(x, dy, y, mv, scale, bias, sums, *, eps: float, count: int,
+                  mask: int, want_dres: bool = False):
+    """The dx kernel: (dx, g or None), in x's dtype.
+
+    dx = s a ((g - Σg/M') - x̂ Σg·x̂/M') with ``sums`` over every rank's
+    ``count`` rows; with ``sums`` None (given statistics) s a g alone. g is
+    the residual's gradient where ``want_dres``.
+    """
+    g = bn_grad_in_ref(x, dy, y, mv, scale, bias, eps=eps, mask=mask)
+    mean, rs, _ = _bn_affine(x, mv, scale, eps)
+    sa = _per_channel(_in(scale, x) * rs, x)
+    gf = g.float()
+    if sums is None:
+        dx = sa * gf
+    else:
+        xh = (x.float() - _per_channel(mean, x)) * _per_channel(rs, x)
+        inv = inv_count(count)
+        dx = sa * ((gf - _per_channel(sums[0] * inv, x))
+                   - xh * _per_channel(sums[1] * inv, x))
+    return dx.to(x.dtype), (g if want_dres else None)
+
+
+def batchnorm_chain_ref(x, scale, bias, *, stats=None, eps: float = 1e-5,
+                        residual=None, relu: bool = False):
+    """The BN as the port wrote it before its kernels, one rank, for the
+    tests to differentiate with autograd: fp32 moments by ``mean``, the
+    variance as E[x²] - mean², the affine in fp32 with the scale and bias as
+    given, the value rounded to x's dtype; then ``F.relu(y + residual)`` or
+    ``F.relu(y)`` as the model wrote them. Returns (y, (mean, var))."""
+    xf = x.float()
+    if stats is not None:
+        mean, var = stats
+    else:
+        mean = xf.mean(_rows_of(x))
+        var = (xf * xf).mean(_rows_of(x)) - mean * mean
+    inv = torch.rsqrt(var + eps) * scale.float()
+    y = ((xf - _per_channel(mean, x)) * _per_channel(inv, x)
+         + _per_channel(bias.float(), x)).to(x.dtype)
+    if residual is not None:
+        y = y + residual
+    return (torch.relu(y) if relu else y), (mean, var)

@@ -18,7 +18,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
@@ -73,18 +72,18 @@ class Bottleneck(nn.Module):
     def forward(self, x, stats=None, collect=False, grid=None):
         sts = {}
 
-        def bn(name, h):
+        def bn(name, h, **epilogue):
             st = None if stats is None else stats[name]
-            out = getattr(self, name)(h, stats=st, return_stats=collect, grid=grid)
+            out = getattr(self, name)(h, stats=st, return_stats=collect, grid=grid,
+                                      **epilogue)
             if collect:
                 out, sts[name] = out
             return out
 
-        h = F.relu(bn("bn1", self.conv1(x)))
-        h = F.relu(bn("bn2", self.conv2(h)))
-        h = bn("bn3", self.conv3(h))
+        h = bn("bn1", self.conv1(x), relu=True)
+        h = bn("bn2", self.conv2(h), relu=True)
         sc = bn("bn_proj", self.proj(x)) if hasattr(self, "proj") else x
-        out = F.relu(h + sc)
+        out = bn("bn3", self.conv3(h), residual=sc, relu=True)   # relu(bn3(h) + sc)
         return (out, sts) if collect else out
 
 
@@ -120,11 +119,11 @@ class ResNet(nn.Module):
         all_stats = {"stem": {}, "stages": []}
 
         st = None if stats is None else stats["stem"].get("bn")
-        out = self.stem.bn(self.stem.conv(x), stats=st,
+        out = self.stem.bn(self.stem.conv(x), stats=st, relu=True,
                            return_stats=collect_stats, grid=grid)
         if collect_stats:
             out, all_stats["stem"]["bn"] = out
-        h = L.max_pool(F.relu(out), 3, 2)
+        h = L.max_pool(out, 3, 2)
 
         for si, blocks in enumerate(self.stages):
             stage_stats = []

@@ -10,17 +10,17 @@ channels-last strides, which cuDNN prefers) and OIHW conv kernels;
 
 Mixed precision follows ``repro/nn/layers.py``: parameters are fp32
 masters, cast to the activations' dtype at apply time -- the BN scale and
-bias included, so BN computes in fp32 with bf16-rounded affine values, as
-the JAX model does.
+bias included (rounded by the BN kernels as they load them), so BN
+computes in fp32 with bf16-rounded affine values, as the JAX model does.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels import ops
 from repro_torch.nn import init as winit
 from repro_torch.utils import dtensor
 
@@ -65,56 +65,26 @@ def dense(x: torch.Tensor, kernel: torch.Tensor,
     return y
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """Sum over a process group, forward and backward: the cotangent of
-    each rank's input is the sum of every rank's output cotangent, as
-    ``jax.grad`` of ``lax.psum`` inside ``shard_map`` gives it."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        x = x.clone()
-        dist.all_reduce(x, group=group)
-        return x
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
 def batchnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
-              stats=None, grid=None, eps: float = 1e-5, return_stats: bool = False):
+              stats=None, grid=None, eps: float = 1e-5, relu: bool = False,
+              residual: torch.Tensor | None = None, return_stats: bool = False):
     """BN "without moving average" (paper §3.2 / Akiba et al. [5]), channel
-    dim 1.
+    dim 1, then ``+ residual`` and the ReLU where the model has them after
+    it (``kernels/ops.py:batchnorm``: hand-written kernels on the card).
 
     Train: batch mean and variance in fp32, the variance as E[x^2] - mean^2.
     With ``grid`` (a built ``core.topology.TorusGrid``) of more than one
-    rank, the mean and squared mean are averaged over all its ranks in fp32
+    rank, the sums of x and x^2 are summed over all its ranks in fp32
     ("communication to synchronize batch mean and batch squared mean was
-    conducted in FP32"), one all-reduce for both, gradients included, as
-    the JAX package's ``dp_axes``. Eval: ``stats`` = (mean, var) from a
-    calibration pass.
+    conducted in FP32"), one all-reduce for both, and so are the
+    backward's two sums, as the JAX package's ``dp_axes``. Eval: ``stats``
+    = (mean, var) from a calibration pass. Rounding as the JAX model: the
+    scale and bias to x's dtype (their gradients come back in their own
+    dtype), the BN's value to x's dtype, then the residual added in fp32
+    and rounded again, then the ReLU.
     """
-    axes = [d for d in range(x.dim()) if d != 1]
-    xf = x.float()
-    if stats is not None:
-        mean, var = stats
-    else:
-        mean = xf.mean(axes)
-        sq = (xf * xf).mean(axes)
-        if grid is not None and grid.size > 1:
-            moments = _AllReduceSum.apply(torch.stack([mean, sq]), grid.world.group)
-            mean, sq = moments.unbind(0)
-            mean, sq = mean / grid.size, sq / grid.size
-        var = sq - mean * mean
-    shape = [1] * x.dim()
-    shape[1] = -1
-    inv = torch.rsqrt(var + eps) * scale.float()
-    y = (xf - mean.view(shape)) * inv.view(shape) + bias.float().view(shape)
-    y = y.to(x.dtype)
-    return (y, (mean, var)) if return_stats else y
+    return ops.batchnorm(x, scale, bias, stats=stats, grid=grid, eps=eps, relu=relu,
+                         residual=residual, return_stats=return_stats)
 
 
 def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2) -> torch.Tensor:
@@ -241,10 +211,11 @@ class BatchNorm(nn.Module):
         self.bn_bias = nn.Parameter(torch.zeros(dim, dtype=torch.float32,
                                                 device=device))
 
-    def forward(self, x, stats=None, return_stats=False, grid=None):
-        return batchnorm(x, cast(self.bn_scale, x.dtype),
-                         cast(self.bn_bias, x.dtype), stats=stats, grid=grid,
-                         return_stats=return_stats)
+    def forward(self, x, stats=None, return_stats=False, grid=None, relu=False,
+                residual=None):
+        # the fp32 masters: ``batchnorm`` rounds them to x's dtype itself
+        return batchnorm(x, self.bn_scale, self.bn_bias, stats=stats, grid=grid,
+                         relu=relu, residual=residual, return_stats=return_stats)
 
 
 class Dense(nn.Module):

@@ -210,6 +210,43 @@ def synced_bn_body(rank: int, world: int, sizes, params, images, weights) -> dic
             "grads": params_to_jax({k: v.grad for k, v in p.items()})}
 
 
+def batchnorm_body(rank: int, world: int, sizes, cases) -> dict:
+    """``ops.batchnorm`` on this rank's rows of each case's batch, the
+    moments over the grid of ``sizes``: {key: y, mean, var and the
+    gradients of sum(y * dy) with respect to x, scale, bias and the
+    residual}. ``cases``: {key: (x, scale, bias, residual or None, dy) NHWC
+    fp32 arrays, relu, dtype}, the batch divided evenly over the ranks."""
+    from repro_torch.core import topology
+
+    grid = topology.select_grid(sizes).build()
+    out = {}
+    for key, (arrays, relu, dtype) in cases.items():
+        per = arrays[0].shape[0] // world
+        rows = slice(rank * per, (rank + 1) * per)
+        out[key] = batchnorm_grads(*(None if a is None else a[rows] if a.ndim == 4 else a
+                                     for a in arrays), relu=relu, dtype=dtype, grid=grid)
+    return out
+
+
+def batchnorm_grads(x, scale, bias, res, dy, *, relu: bool, dtype, grid=None) -> dict:
+    """y, (mean, var) and the gradients of sum(y * dy) of ``ops.batchnorm``
+    from NHWC fp32 arrays, activations channels-last in ``dtype``."""
+    from repro_torch.kernels import ops
+
+    def act(a):
+        return torch.from_numpy(a.copy()).to(dtype).permute(0, 3, 1, 2).requires_grad_(True)
+
+    xt, rt = act(x), None if res is None else act(res)
+    st, bt = (torch.from_numpy(a.copy()).to(dtype).requires_grad_(True) for a in (scale, bias))
+    y, (mean, var) = ops.batchnorm(xt, st, bt, grid=grid, relu=relu, residual=rt,
+                                   return_stats=True)
+    leaves = [t for t in (xt, st, bt, rt) if t is not None]
+    grads = torch.autograd.grad(y, leaves, act(dy).detach())
+    out = {"y": _np(y), "mean": _np(mean), "var": _np(var)}
+    out.update({k: _np(g) for k, g in zip(("dx", "dscale", "dbias", "dres"), grads)})
+    return out
+
+
 def synthetic_batch(step: int, global_batch: int, num_classes: int):
     """The global batch of a step: (images (gb, 32, 32, 3) fp32, labels
     (gb,) int32) from numpy seed ``step``, the same for both packages."""

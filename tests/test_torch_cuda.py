@@ -16,11 +16,13 @@ from repro_torch.core.batch_control import build_plan
 from repro_torch.core.grad_sync import GradSyncConfig
 from repro_torch.core.schedules import BatchSchedule, BatchStage
 from repro_torch.data.synthetic import SyntheticImageNet
+from repro_torch.kernels import batchnorm as bn_kernels
 from repro_torch.kernels import ls_xent, ops, ref
 from repro_torch.kernels.flash_attn import (flash_attention_bwd_cuda, flash_attention_cuda,
                                             flash_attention_f32, flash_attention_tc)
 from repro_torch.kernels.lars_update import MAX_LEAVES, lars_update_cuda
 from repro_torch.kernels.ls_xent import ls_xent_bwd_cuda, ls_xent_fwd_cuda
+from repro_torch.launch import profile_bn, profile_trainer
 from repro_torch.models import resnet
 from repro_torch.models import transformer as T
 from repro_torch.train.state import TrainState
@@ -238,10 +240,14 @@ def test_tiny_resnet_trains_the_same_on_the_card_and_the_host(cuda):
     n_lars = sum(1 for n in out["cpu"][0].params if "kernel" in n)
     assert n_lars > 0
     # every leaf, LARS and skip, in two launches a step
+    # and each of the 9 BNs (stem, 2 blocks x 3, 2 projections) through the
+    # BN kernels, two launches forward and two backward a step
     assert ops.launch_counts() == {"lars_update": 2 * 3, "ls_xent_fwd": 3,
                                    "ls_xent_bwd": 3, "flash_attn": 0,
                                    "flash_attn_f32": 0, "flash_attn_bwd": 0,
-                                   "flash_attn_bwd_f32": 0}
+                                   "flash_attn_bwd_f32": 0, "bn_fwd_stats": 9 * 3,
+                                   "bn_fwd_apply": 9 * 3, "bn_bwd_sums": 9 * 3,
+                                   "bn_bwd_dx": 9 * 3}
     # cuDNN and the host sum convolutions in different orders
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         assert abs(a - b) <= 1e-4 * max(1.0, abs(b))
@@ -689,3 +695,104 @@ def test_flash_tc_kernel_at_the_rglru_and_vlm_serve_shapes(cuda, b, s, skv, h, h
     torch.cuda.synchronize()
     assert flash_attention_tc.launches == before + 1
     assert_flash_close(got, q, k, v, **kw)
+
+
+# -- batch norm (csrc/batchnorm.cu) ------------------------------------------------
+
+BN_CASES = ([(c, torch.bfloat16) for c, _ in profile_bn.distinct(
+    profile_bn.calls(resnet.ResNetConfig.resnet50(), 256))]
+    + [(c, torch.float32) for c, _ in profile_bn.distinct(
+        profile_bn.calls(resnet.ResNetConfig.tiny(), 8))])
+
+
+@pytest.mark.parametrize("case", BN_CASES, ids=lambda c: f"{c[0].name}-{str(c[1])[6:]}")
+def test_bn_kernels_match_plain_at_every_resnet50_shape(cuda, case):
+    """Every distinct BN of ResNet-50 at 256 images in bf16, and of the fp32
+    tiny config (C 8 to 64): the two sums within 2^-14 of the sum of their
+    terms' magnitudes (the same terms added in another order), every other
+    output equal to the plain version's bit for bit given the kernels' own
+    sums (the same uncontracted fp32 operations), and a second call the
+    same bytes (``profile_bn.check``)."""
+    c, dtype = case
+    r = profile_bn.check(c, dtype, _gen(cuda, 0))
+    assert r["stats_err_over_tol"] <= 1 and r["bwd_sums_err_over_tol"] <= 1, r
+    assert all(r["bitwise"].values()) and r["repeats"], r
+
+
+def test_bn_autograd_repeats_bit_for_bit(cuda):
+    """Forward and backward through ``ops.batchnorm`` twice at the stem's
+    shape (a ReLU) and at stage 4's ``bn3`` (residual and ReLU): the same
+    bytes; no float atomics, every sum in an order that the shape fixes."""
+    cs = profile_bn.calls(resnet.ResNetConfig.resnet50(), 256)
+    for c in (cs[0], cs[-1]):
+        x, scale, bias, res, dy = profile_bn.inputs(c, torch.bfloat16, _gen(cuda, 1))
+        outs = []
+        for _ in range(2):
+            leaves = [t.detach().requires_grad_() for t in (x, scale, bias, res)
+                      if t is not None]
+            y, stats = ops.batchnorm(*leaves[:3], relu=c.relu,
+                                     residual=leaves[3] if c.residual else None,
+                                     return_stats=True)
+            outs.append([y, *stats, *torch.autograd.grad(y, leaves, dy)])
+        assert all(torch.equal(a, b) for a, b in zip(*outs)), c.name
+
+
+def test_resnet50_step_launches_each_bn_kernel_53_times(cuda):
+    """One training step of ResNet-50 at 256 images through ``Trainer.run``:
+    all 53 BNs through the kernels, forward and backward, and nothing else
+    launched them."""
+    model, data_fn, loss_fn, _ = profile_trainer.resnet50_path(cuda)
+    plan = build_plan(BatchSchedule((BatchStage(0, 1, 256),)), dataset_size=256,
+                      n_workers=1, max_steps=1)
+    ops.reset_launch_counts()
+    Trainer(loss_fn, TrainerConfig(log_every=1), plan, data_fn).run(
+        TrainState.create(dict(model.named_parameters())), log=lambda s: None)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["ls_xent_fwd"] == 1
+    for name in ("bn_fwd_stats", "bn_fwd_apply", "bn_bwd_sums", "bn_bwd_dx"):
+        assert counts[name] == 53, counts
+
+
+def test_bn_kernel_names_are_classed_outside_matmul_nccl_and_port(cuda):
+    """The benchmark classes device ops by name (``bench/harness/classes.py``,
+    first match wins): the BN kernels' demangled names, template arguments
+    and namespace included, must fall in none of the convolution / matmul,
+    NCCL or port classes, so that their time counts where BN's did."""
+    from bench.harness import classes
+
+    c = profile_bn.calls(resnet.ResNetConfig.resnet50(), 8)[-1]     # bn3: all four
+    names = set()
+    for dtype in (torch.bfloat16, torch.float32):
+        x, scale, bias, res, dy = profile_bn.inputs(c, dtype, _gen(cuda, 2))
+        leaves = [t.detach().requires_grad_() for t in (x, scale, bias, res)]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            y = ops.batchnorm(*leaves[:3], relu=True, residual=leaves[3])
+            torch.autograd.grad(y, leaves, dy)
+            torch.cuda.synchronize()
+        names |= {e.name for e in prof.events() if "bn_" in e.name and "kernel" in e.name}
+    stems = {"bn_fwd_stats_kernel", "bn_fwd_apply_kernel", "bn_bwd_sums_kernel",
+             "bn_bwd_dx_kernel"}
+    assert {s for s in stems if any(s in n for n in names)} == stems, names
+    assert len(names) == 8, names       # four kernels x two types
+    bad = {classes.MATMUL, classes.NCCL, *classes.PORT}
+    assert not {n: classes.classify(n) for n in names if classes.classify(n) in bad}
+
+
+def test_bn_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    g = _gen(cuda, 3)
+    x = torch.randn(2, 16, 4, 4, generator=g, device=cuda)     # NCHW strides
+    one = torch.ones(16, device=cuda)
+    with pytest.raises(ValueError, match="channels-last"):
+        bn_kernels.bn_fwd_stats_cuda(x)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bn_kernels.bn_fwd_stats_cuda(torch.randn(2, 12, 4, 4, device=cuda).to(
+            memory_format=torch.channels_last))
+    with pytest.raises(TypeError):
+        bn_kernels.bn_fwd_stats_cuda(x.half().to(memory_format=torch.channels_last))
+    xc = x.to(memory_format=torch.channels_last)
+    mv = torch.zeros(2, 16, device=cuda)
+    with pytest.raises(ValueError, match="scale"):     # the kernels load fp32 masters
+        bn_kernels.bn_fwd_apply_cuda(xc, mv, one.bfloat16(), one, eps=1e-5)
+    with pytest.raises(ValueError, match="channels-last"):
+        ops.batchnorm(x, one, one)

@@ -22,6 +22,8 @@ from repro.core import losses as jlosses
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import build, ls_xent, ops, ref
+from repro_torch.kernels.batchnorm import (bn_bwd_dx_cuda, bn_bwd_sums_cuda, bn_fwd_apply_cuda,
+                                           bn_fwd_stats_cuda)
 from repro_torch.kernels.flash_attn import (flash_attention_cuda, flash_attention_f32,
                                             flash_attention_tc)
 from repro_torch.kernels.lars_update import lars_update_cuda
@@ -236,10 +238,13 @@ def test_cpu_tensors_launch_no_kernel():
     ops.lars_update(torch.randn(8), torch.randn(8), torch.zeros(8), **LARS_KW)
     ops.flash_attention(torch.randn(1, 8, 2, 32), torch.randn(1, 8, 1, 32),
                         torch.randn(1, 8, 1, 32))
+    h = torch.randn(2, 8, 3, 3, requires_grad=True).to(memory_format=torch.channels_last)
+    ops.batchnorm(h, torch.ones(8), torch.zeros(8), relu=True).sum().backward()
     assert ops.launch_counts() == {"lars_update": 0, "ls_xent_fwd": 0,
                                    "ls_xent_bwd": 0, "flash_attn": 0,
                                    "flash_attn_f32": 0, "flash_attn_bwd": 0,
-                                   "flash_attn_bwd_f32": 0}
+                                   "flash_attn_bwd_f32": 0, "bn_fwd_stats": 0,
+                                   "bn_fwd_apply": 0, "bn_bwd_sums": 0, "bn_bwd_dx": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -257,6 +262,16 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     for fn in (flash_attention_cuda, flash_attention_tc, flash_attention_f32):
         with pytest.raises(ValueError):
             fn(q.to(torch.bfloat16) if fn is flash_attention_tc else q, q, q)
+    h = torch.randn(2, 8, 3, 3).to(memory_format=torch.channels_last)
+    mv, one = torch.zeros(2, 8), torch.ones(8)
+    with pytest.raises(ValueError):
+        bn_fwd_stats_cuda(h)
+    with pytest.raises(ValueError):
+        bn_fwd_apply_cuda(h, mv, one, one, eps=1e-5)
+    with pytest.raises(ValueError):
+        bn_bwd_sums_cuda(h, h, None, mv, one, one, eps=1e-5, mask=1)
+    with pytest.raises(ValueError):
+        bn_bwd_dx_cuda(h, h, None, mv, one, one, mv, eps=1e-5, count=18, mask=1)
     assert ops.launch_counts()["ls_xent_fwd"] == 0
 
 
