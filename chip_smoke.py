@@ -21,7 +21,10 @@
    images in bf16 and of the tiny config in fp32
    (``repro_torch.launch.profile_bn.check``: the two sums within 2^-14 of
    their terms' magnitudes, every other output bit for bit, a second call
-   the same bytes); and the flash backward (``csrc/flash_attn_bwd.cu``, bf16;
+   the same bytes); the guard's kernels (``csrc/guard.cu``) at ResNet-50's
+   161 leaves and Qwen3-1.7B's 310, the unscale and the commit on a clean
+   step and with a NaN planted, bit for bit
+   (``repro_torch.launch.profile_guard.check``); and the flash backward (``csrc/flash_attn_bwd.cu``, bf16;
    ``csrc/flash_attn_bwd_f32.cu``, fp32) in both dtypes against its plain
    version from the forward kernel's o and lse, under
    ``ref.flash_attention_bwd_tol``, at Qwen3-1.7B's training shape (4 x
@@ -42,7 +45,10 @@
    (32 | 64, 1000) fp32 and (4096, 151936) fp32 and bf16; the BN kernels
    over the 53 BNs of a ResNet-50 step at 256 images beside their two-pass
    bytes' bound, their plain versions, the earlier autograd chain and
-   ``F.batch_norm`` (``profile_bn.time_call``); flash through
+   ``F.batch_norm`` (``profile_bn.time_call``); the guard's kernels at
+   ResNet-50's and Qwen3-1.7B's leaves beside the unscale's byte bound, the
+   plain version and ``torch._amp_foreach_non_finite_check_and_unscale_``
+   (``profile_guard.time_tree``); flash through
    ``repro_torch.launch.profile_flash``, the fp32 kernel at the smoke
    config's shape and at the Qwen3-1.7B prefill shape, the bf16 kernel also
    at the other served archs' prefill shapes (``profile_flash.SERVE_SHAPES``),
@@ -250,6 +256,15 @@ def bn_launches(n: int) -> dict:
     return {name: n for name in BN_KERNELS}
 
 
+GUARD_KERNELS = ("guard_unscale_count", "guard_commit")
+
+
+def guard_launches(steps: int) -> dict:
+    """The guard's kernels' counts over ``steps`` steps of fewer than 513
+    leaves: one unscale and one commit a step."""
+    return {name: steps for name in GUARD_KERNELS}
+
+
 def check_bn(torch, gen) -> dict:
     """The BN kernels against their plain versions at every distinct BN of
     ResNet-50 at 256 images (bf16) and of the tiny config (fp32), through
@@ -305,6 +320,55 @@ def time_bn(torch, gen) -> dict:
             "bound_ms": t["bound_ms"], "bound_by": "bytes",
             "at": "the 53 BNs of one ResNet-50 step at 256 images, bf16, forward and backward",
             "shapes": rows}
+
+
+def check_guard(torch, gen) -> dict:
+    """The guard's kernels against their plain versions at ResNet-50's 161
+    leaves and Qwen3-1.7B's 310, laid out as the step lays them out
+    (``profile_guard.check``): the unscale and the commit, on a clean step
+    and with a NaN planted, bit for bit. Returns the max abs error."""
+    from repro_torch.launch import profile_guard
+
+    err = 0.0
+    for tree in profile_guard.TREES:
+        r = profile_guard.check(profile_guard.leaf_sizes(tree), gen)
+        print(f"check guard {tree}: {json.dumps(r)}")
+        if not all(v for k, v in r.items() if k.endswith("_same")) or r["max_abs_err"] != 0:
+            fail(f"the guard's kernels differ from their plain versions at {tree}'s leaves: {r}")
+        err = max(err, r["max_abs_err"])
+        torch.cuda.empty_cache()
+    print(f"check guard: unscale and commit at {' and '.join(profile_guard.TREES)}'s leaves, "
+          f"clean and with a NaN planted, bit for bit (max abs err {err:g})")
+    return {"max_abs_err": err}
+
+
+def time_guard(torch, gen) -> dict:
+    """The guard's kernels at ResNet-50's and Qwen3-1.7B's leaves
+    (``profile_guard.time_tree``): the unscale and the commit of a finite
+    step beside the unscale's byte bound (the commit moves no parameter
+    byte on a finite step), the plain version and
+    ``torch._amp_foreach_non_finite_check_and_unscale_``. The row is
+    ResNet-50's, with Qwen3-1.7B's under ``lm``."""
+    from repro_torch.launch import profile_guard
+
+    rows = {}
+    for tree in profile_guard.TREES:
+        rows[tree] = profile_guard.time_tree(tree, profile_guard.leaf_sizes(tree), gen)
+        print(f"time guard {tree}: {json.dumps(rows[tree])}")
+        torch.cuda.empty_cache()
+
+    def entry(r):
+        return {"ms": r["unscale_ms"] + r["commit_finite_ms"], "unscale_ms": r["unscale_ms"],
+                "commit_finite_ms": r["commit_finite_ms"],
+                "commit_skipped_ms": r["commit_skipped_ms"], "bound_ms": r["unscale_bound_ms"],
+                "eager_ms": r["guard_eager_ms"], "plain_ms": r["plain_ms"],
+                "library_ms": r["library_ms"], "host_us": r["host_us"],
+                "plain_host_us": r["plain_host_us"],
+                "at": f"the guard of one step over {r['tree']}'s {r['leaves']} leaves, "
+                      f"{r['elements']} fp32 elements"}
+
+    res, lm = (entry(rows[t]) for t in profile_guard.TREES)
+    return {**res, "bound_by": "bytes", "lm": lm}
 
 
 def check_flash(torch, dev, gen) -> dict:
@@ -516,7 +580,8 @@ def train_lm(torch, dev, grid, card: str, stages=LM_STAGES, remat: bool = False)
             fail(f"{tag} step {r['step']}: loss {r['loss']}, skipped {r['skipped']}")
     want = {"lars_update": 2 * steps, "ls_xent_fwd": steps, "ls_xent_bwd": steps,
             "flash_attn": (2 if remat else 1) * n_attn * steps, "flash_attn_f32": 0,
-            "flash_attn_bwd": n_attn * steps, "flash_attn_bwd_f32": 0, **bn_launches(0)}
+            "flash_attn_bwd": n_attn * steps, "flash_attn_bwd_f32": 0, **bn_launches(0),
+            **guard_launches(steps)}
     if counts != want:
         fail(f"{tag} training launched {counts}, want {want}")
     medians = profile_trainer.stage_medians(plan, rows)
@@ -703,7 +768,7 @@ def serve(torch, dev, arch: str) -> dict:
           f"peak device memory {peak / 2**30:.2f} GiB")
     want = {"lars_update": 0, "ls_xent_fwd": 0, "ls_xent_bwd": 0,
             "flash_attn": n_attn, "flash_attn_f32": 0, "flash_attn_bwd": 0,
-            "flash_attn_bwd_f32": 0, **bn_launches(0)}
+            "flash_attn_bwd_f32": 0, **bn_launches(0), **guard_launches(0)}
     if counts != want:
         fail(f"generate launched {counts}, want {want}")
     if len(results) != len(prompts) or any(len(r) != NEW for r in results):
@@ -960,7 +1025,8 @@ def supervised(torch, grid, model, data_fn, loss_fn, plan, sync, card: str) -> d
                 fail(f"the chaos or resumed run differs from the clean run: {verdict}")
             want = {"lars_update": 2 * total, "ls_xent_fwd": total, "ls_xent_bwd": total,
                     "flash_attn": 0, "flash_attn_f32": 0, "flash_attn_bwd": 0,
-                    "flash_attn_bwd_f32": 0, **bn_launches(53 * total)}
+                    "flash_attn_bwd_f32": 0, **bn_launches(53 * total),
+                    **guard_launches(total)}
             if counts != want:
                 fail(f"supervised launches {counts}, want {want}")
 
@@ -1291,6 +1357,7 @@ def run(torch, store_dir: str) -> int:
           f"err/tol {bwd_ratio:.3g} (tol {XENT_BWD_TOL})")
 
     bn_err = check_bn(torch, gen)
+    guard_err = check_guard(torch, gen)
     flash_err = check_flash(torch, dev, gen)
     t0 = time.perf_counter()
     flash_bwd_err = check_flash_bwd(torch, gen)
@@ -1330,6 +1397,7 @@ def run(torch, store_dir: str) -> int:
             print(f"time {name} ({what}): {t}")
 
     bn_time = time_bn(torch, gen)
+    guard_time = time_guard(torch, gen)
     t0 = time.perf_counter()
     flash_time = time_flash(torch, gen)
     print(f"phase time flash (forward and backward): {time.perf_counter() - t0:.1f} s")
@@ -1376,7 +1444,8 @@ def run(torch, store_dir: str) -> int:
             fail(f"step {row['step']} was skipped by the guard")
     want = {"lars_update": 2 * steps, "ls_xent_fwd": steps, "ls_xent_bwd": steps,
             "flash_attn": 0, "flash_attn_f32": 0, "flash_attn_bwd": 0,
-            "flash_attn_bwd_f32": 0, **bn_launches(53 * steps)}
+            "flash_attn_bwd_f32": 0, **bn_launches(53 * steps),
+            **guard_launches(steps)}
     if counts != want:
         fail(f"launch counts {counts}, want {want}")
     for st in profile_trainer.stage_medians(plan, history):
@@ -1512,11 +1581,14 @@ def run(torch, store_dir: str) -> int:
         # package's BN (src/repro/nn/layers.py:batchnorm)
         "batchnorm": ("cuda", "src/repro_torch/csrc/batchnorm.cu", "none",
                       bn_err["max_abs_err"]),
+        # the guard's two kernels as one row: no TPU kernel, XLA fuses the
+        # JAX package's guard (src/repro/train/trainer.py:make_train_step)
+        "guard": ("cuda", "src/repro_torch/csrc/guard.cu", "none", guard_err["max_abs_err"]),
     }
     main_rows = plan.stages[-1].global_batch
     measured = {"lars_update": timing["lars_update"],
                 **xent_times[main_rows, 1000, torch.float32], **flash_time,
-                "batchnorm": bn_time}
+                "batchnorm": bn_time, "guard": guard_time}
     # ls_xent also at Qwen3-1.7B's logits, beside its main-path entry
     xent_lm = {}
     for (rows, vocab, dtype), pair in xent_times.items():
@@ -1534,6 +1606,11 @@ def run(torch, store_dir: str) -> int:
                             "supervised": sum(sup["counts"][k] for k in BN_KERNELS)}
     remat_runs = {f"{LM_ARCH} training remat {r['stages'][0]['global_batch']} x {LM_SEQ}": r
                   for r in lm_remat}
+    by_path["guard"] = {"resnet50": sum(counts[k] for k in GUARD_KERNELS),
+                        "supervised": sum(sup["counts"][k] for k in GUARD_KERNELS),
+                        f"{LM_ARCH} training": sum(lm["counts"][k] for k in GUARD_KERNELS),
+                        **{k: sum(r["counts"][g] for g in GUARD_KERNELS)
+                           for k, r in remat_runs.items()}}
     for name in ("lars_update", "ls_xent_fwd", "ls_xent_bwd"):
         by_path[name][f"{LM_ARCH} training"] = lm["counts"][name]
         by_path[name].update((k, r["counts"][name]) for k, r in remat_runs.items())
@@ -1566,7 +1643,9 @@ def run(torch, store_dir: str) -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
             **{k: t[k] for k in ("fma_bound_ms", "tflops_per_s", "library_fwd_bwd_ms",
-                                 "chain_ms", "prefill", "train", "serve") if k in t},
+                                 "chain_ms", "prefill", "train", "serve", "unscale_ms",
+                                 "commit_finite_ms", "commit_skipped_ms", "host_us",
+                                 "plain_host_us", "lm") if k in t},
             **({"lm": xent_lm[name]} if name in xent_lm else {}),
             **({"worst_err_over_tol": check_ratio[name]} if name in check_ratio else {}),
             **({"worst_norm_over_limit": norm_ratio[name]} if name in norm_ratio else {}),

@@ -58,6 +58,11 @@ SIGNATURES = {
                     ctypes.c_int, _P, _P, _P, _P, _P),
     "bn_bwd_dx": (_P, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
                   ctypes.c_float, ctypes.c_int, _P, _P, _P),
+    # csrc/guard.cu
+    "guard_table_check": (ctypes.c_longlong, ctypes.c_longlong),
+    "guard_unscale_count": (_P, _P, _P, ctypes.c_int, _P),
+    # table, finite, blocks, grid, stream
+    "guard_commit": (_P, _P, ctypes.c_int, ctypes.c_int, _P),
 }
 
 _lock = threading.Lock()

@@ -47,7 +47,7 @@ class Launch:
     """One pair of launches: leaves ``first`` .. ``first + len(chunk0) - 2``."""
     first: int
     chunk0: tuple[int, ...]    # each leaf's first block; the last entry = blocks
-    offsets: tuple[int, ...]   # each leaf's offset in the flat outputs
+    offsets: tuple[int, ...]   # each leaf's offset in the flat outputs, a multiple of 4
     base: int = 0              # the launch's first block, over all launches
 
     @property
@@ -59,7 +59,9 @@ def leaf_plan(numels: list[int], *, max_leaves: int = MAX_LEAVES,
               chunk: int = CHUNK) -> list[Launch]:
     """Cut leaves of ``numels`` elements into launches of at most
     ``max_leaves`` leaves, each leaf into blocks of ``chunk`` elements, and
-    place the leaves one after another in the flat outputs."""
+    place the leaves one after another in the flat outputs, each on a
+    16-byte boundary (fp32), as a leaf of its own allocation would start:
+    the BN kernels take the scale and bias with 16-byte loads."""
     launches, off, base = [], 0, 0
     for first in range(0, len(numels), max_leaves):
         chunk0, offsets = [0], []
@@ -67,7 +69,7 @@ def leaf_plan(numels: list[int], *, max_leaves: int = MAX_LEAVES,
             if not 0 < n < 2**31:
                 raise ValueError(f"lars_update: a leaf of {n} elements")
             offsets.append(off)
-            off += n
+            off += -(-n // 4) * 4
             chunk0.append(chunk0[-1] + -(-n // chunk))
         launches.append(Launch(first, tuple(chunk0), tuple(offsets), base))
         base += chunk0[-1]
@@ -151,8 +153,8 @@ def lars_update_cuda(ps: list[torch.Tensor], gs: list[torch.Tensor],
     ``lars[i]`` False makes leaf i a skip leaf (trust 1, no weight decay).
     ``groups`` counts the consecutive leaves that share a trust ratio (the
     norms over all of them); None: one a leaf. Leaves are fp32, contiguous,
-    on one CUDA device; the outputs are views of two flat buffers, and the
-    inputs are left as they were.
+    on one CUDA device; the outputs are views of two flat buffers, each on
+    a 16-byte boundary, and the inputs are left as they were.
     """
     if not (len(ps) == len(gs) == len(vs) == len(lars)):
         raise ValueError("lars_update_cuda: ps, gs, vs and lars differ in length")
@@ -169,7 +171,7 @@ def lars_update_cuda(ps: list[torch.Tensor], gs: list[torch.Tensor],
                                for launch in launches], len(sizes))
     tables, n_groups = plan
     lib = build.library()
-    total = sum(numels)
+    total = tables[-1][0].offsets[-1] + numels[-1]
     p_flat = torch.empty(total, dtype=torch.float32, device=dev)
     v_flat = torch.empty(total, dtype=torch.float32, device=dev)
     partial = torch.empty(2 * sum(launch.blocks for launch, _ in tables),
@@ -195,8 +197,9 @@ def lars_update_cuda(ps: list[torch.Tensor], gs: list[torch.Tensor],
             launch.blocks, lr, mom, eta, weight_decay, eps, int(nesterov), stream),
             "lars_apply_f32")
         lars_update_cuda.launches += 1
-    return (list(torch._utils._unflatten_dense_tensors(p_flat, ps)),
-            list(torch._utils._unflatten_dense_tensors(v_flat, ps)))
+    offsets = [o for launch, _ in tables for o in launch.offsets]
+    return ([p_flat.as_strided(p.shape, p.stride(), o) for p, o in zip(ps, offsets)],
+            [v_flat.as_strided(p.shape, p.stride(), o) for p, o in zip(ps, offsets)])
 
 
 def _static_table(launch: Launch, numels: list[int], lars: list[bool],

@@ -18,6 +18,7 @@ from repro_torch.kernels.flash_attn import (FlashAttention, check_every_row_atte
                                             flash_attention_bwd_bf16, flash_attention_bwd_f32,
                                             flash_attention_cuda, flash_attention_f32,
                                             flash_attention_tc)
+from repro_torch.kernels.guard import guard_commit_cuda, guard_unscale_count_cuda
 from repro_torch.kernels.lars_update import lars_update_cuda
 from repro_torch.kernels.ls_xent import LSXent, ls_xent_bwd_cuda, ls_xent_fwd_cuda
 from repro_torch.utils import dtensor
@@ -27,7 +28,8 @@ _WRAPPERS = {"lars_update": lars_update_cuda, "ls_xent_fwd": ls_xent_fwd_cuda,
              "flash_attn_f32": flash_attention_f32, "flash_attn_bwd": flash_attention_bwd_bf16,
              "flash_attn_bwd_f32": flash_attention_bwd_f32, "bn_fwd_stats": bn_fwd_stats_cuda,
              "bn_fwd_apply": bn_fwd_apply_cuda, "bn_bwd_sums": bn_bwd_sums_cuda,
-             "bn_bwd_dx": bn_bwd_dx_cuda}
+             "bn_bwd_dx": bn_bwd_dx_cuda, "guard_unscale_count": guard_unscale_count_cuda,
+             "guard_commit": guard_commit_cuda}
 
 
 def lars_update_leaves(ps, gs, vs, lars, *, lr, mom, eta, weight_decay, eps,
@@ -59,6 +61,29 @@ def lars_update(p, g, v, *, lr, mom, eta, weight_decay, eps,
                                 weight_decay=weight_decay, eps=eps,
                                 nesterov=nesterov)
     return ps[0], vs[0]
+
+
+def guard_unscale_count(grads: list[torch.Tensor], scale: torch.Tensor | None):
+    """The guard's first pass over the synced gradients: each times
+    1 / ``scale`` (None: the guard is off, left as they are) and the int64
+    count of non-finite elements of the result; returns ``(grads, count)``.
+    On the card one launch (more past ``MAX_LEAVES`` leaves) writes in place
+    and returns the same tensors, so they must be the caller's own; on the
+    host the plain version returns new ones. Use what is returned."""
+    if not grads or not grads[0].is_cuda:
+        return ref.guard_unscale_count_ref(grads, scale)
+    return guard_unscale_count_cuda(grads, scale)
+
+
+def guard_commit(finite, old_p, new_p, old_v, new_v):
+    """The guard's select after LARS: LARS's ``new_p`` and ``new_v`` where
+    ``finite`` (a 0-d bool), else the old leaves; returns ``(new_p,
+    new_v)``. On the card one launch reads the flag there and copies the
+    old leaves over the new in place on a skipped step only; on the host the
+    plain version's selects return new tensors. Use what is returned."""
+    if not finite.is_cuda:
+        return ref.guard_commit_ref(finite, old_p, new_p, old_v, new_v)
+    return guard_commit_cuda(finite, old_p, new_p, old_v, new_v)
 
 
 def ls_xent(logits: torch.Tensor, labels: torch.Tensor, *,

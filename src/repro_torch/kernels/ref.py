@@ -89,6 +89,24 @@ def lars_update_leaves_ref(ps, gs, vs, lars, *, lr, mom, eta, weight_decay, eps,
     return out_p, out_v
 
 
+def guard_unscale_count_ref(grads, scale):
+    """The guard's first pass (``csrc/guard.cu``): each gradient times
+    1 / ``scale`` (None: left as it is) and the int64 count of non-finite
+    elements over all of them; returns ``(grads, count)``, new tensors."""
+    if scale is not None:
+        inv = 1.0 / scale   # exact for the power-of-two scales we use
+        grads = [g * inv.to(g.dtype) for g in grads]
+    return grads, torch.stack([(~torch.isfinite(g)).sum() for g in grads]).sum()
+
+
+def guard_commit_ref(finite, old_p, new_p, old_v, new_v):
+    """The guard's select (``csrc/guard.cu``): LARS's ``new_p``, ``new_v``
+    where ``finite``, else the old leaves; returns ``(new_p, new_v)``, new
+    tensors (``torch.where`` selects bit-exactly)."""
+    return ([torch.where(finite, p, o) for p, o in zip(new_p, old_p)],
+            [torch.where(finite, v, o) for v, o in zip(new_v, old_v)])
+
+
 def ls_xent_fwd_ref(logits: torch.Tensor, labels: torch.Tensor,
                     smoothing: float):
     """The forward kernel's outputs: per-row (loss, lse), fp32.

@@ -17,9 +17,11 @@ One ``train_step``, in the reference's order:
   4. LR + momentum from the schedule at the *fractional epoch*
   5. LARS update in fp32 (the CUDA kernel on the card)
 
-Every decision stays on the device: the finite flag selects with
-``torch.where``, so the step needs no host synchronisation; ``Trainer.run``
-reads the ``skipped`` flag once a step, as the JAX trainer does.
+Every decision stays on the device: the guard's verdict reads the finite
+flag where it was computed (``kernels/ops.py:guard_commit``: one kernel on
+the card, ``torch.where`` selects on the host), so the step needs no host
+synchronisation; ``Trainer.run`` reads the ``skipped`` flag once a step, as
+the JAX trainer does.
 
 ``Trainer.run`` is the reference's **supervised recovery loop**
 (``repro/train/trainer.py``): it loops over the batch-size-control stages
@@ -68,6 +70,7 @@ from repro_torch.core import topology
 from repro_torch.core.batch_control import TrainPlan, epoch_of
 from repro_torch.core.grad_sync import GradSyncConfig
 from repro_torch.core.topology import TorusGrid
+from repro_torch.kernels import ops as kops
 from repro_torch.obs import ObsConfig, Telemetry
 from repro_torch.obs.metrics import NULL_REGISTRY
 from repro_torch.obs.tracing import Tracer, torch_profile
@@ -134,6 +137,22 @@ def _rank_mean(grid: TorusGrid, *values: torch.Tensor) -> list[torch.Tensor]:
     return list(stacked.unbind(0))
 
 
+def next_loss_scale(finite: torch.Tensor, scale: torch.Tensor, good_steps: torch.Tensor,
+                    guard: GuardConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dynamic loss scale after a step, on the device: it grows by
+    ``growth_factor`` (to ``max_scale`` at most) after ``growth_interval``
+    clean steps in a row and backs off by ``backoff_factor`` (to
+    ``min_scale`` at least) on a skipped one. Returns ``(scale,
+    good_steps)``, the clean steps since the last change (int32)."""
+    good = torch.where(finite, good_steps + 1, torch.zeros_like(good_steps))
+    grow = finite & (good >= guard.growth_interval)
+    new_scale = torch.where(
+        finite,
+        torch.where(grow, (scale * guard.growth_factor).clamp(max=guard.max_scale), scale),
+        (scale * guard.backoff_factor).clamp(min=guard.min_scale))
+    return new_scale, torch.where(grow, torch.zeros_like(good), good).to(torch.int32)
+
+
 def make_train_step(loss_fn: Callable, cfg: TrainerConfig, grid: TorusGrid | None = None,
                     groups=None, tracer: Tracer | None = None):
     """Build the step ``(state, batch, epoch, global_batch) -> (state, metrics)``.
@@ -150,9 +169,10 @@ def make_train_step(loss_fn: Callable, cfg: TrainerConfig, grid: TorusGrid | Non
 
     The step's layers run in spans of ``tracer`` (``Trainer.run`` passes its
     telemetry's; None: a disabled one) that tile the step: ``forward``,
-    ``backward``, ``grad_sync``, ``guard`` (the unscale, the rank mean and
-    the finite flag), ``optimizer`` (LARS), ``guard`` again (the selects and
-    the loss scale's update) and ``step_metrics``. Under ``torch.profiler``
+    ``backward``, ``grad_sync``, ``guard`` (the unscale and the count of
+    non-finite elements, the rank mean and the finite flag), ``optimizer``
+    (LARS), ``guard`` again (the skip and the loss scale's update) and
+    ``step_metrics``. Under ``torch.profiler``
     each is a ``repro_torch/<span>`` range around the kernels it launched,
     whatever the tracer records.
     """
@@ -178,16 +198,15 @@ def make_train_step(loss_fn: Callable, cfg: TrainerConfig, grid: TorusGrid | Non
             grads = grad_sync_lib.sync_tree(dict(zip(names, grads)), grid, cfg.grad_sync,
                                             groups)
         with span("guard"):
-            if guard.enabled:
-                inv = 1.0 / scale   # exact for the power-of-two scales we use
-                grads = {k: g * inv.to(g.dtype) for k, g in grads.items()}
-
+            # unscale (in place on the card: sync_tree's outputs are the
+            # step's own) and count the non-finite elements
+            unscaled, nonfinite = kops.guard_unscale_count(
+                list(grads.values()), scale if guard.enabled else None)
+            grads = dict(zip(grads, unscaled))
+            loss_m, aux_m = _rank_mean(grid, loss, aux)
             # all-finite flag over the rank-mean loss and the synced grads: the
             # all-reduce carried any rank's NaN/Inf to every rank, so the flag
             # (and the skip) is the same on all of them
-            loss_m, aux_m = _rank_mean(grid, loss, aux)
-            nonfinite = torch.stack([(~torch.isfinite(g)).sum()
-                                     for g in grads.values()]).sum()
             finite = torch.isfinite(loss_m) & (nonfinite == 0)
 
         lr = schedule.lr(epoch)
@@ -200,21 +219,15 @@ def make_train_step(loss_fn: Callable, cfg: TrainerConfig, grid: TorusGrid | Non
         if guard.enabled:
             with span("guard"):
                 # skip the update on non-finite steps: params/momentum pass
-                # through unchanged (torch.where selects bit-exactly on True)
-                new_params = {k: torch.where(finite, p, state.params[k])
-                              for k, p in new_params.items()}
+                # through unchanged (in place on the card, on a skipped step
+                # only), and the loss scale backs off
                 old_m = state.opt_state["momentum"]
-                new_opt = {"momentum": {k: torch.where(finite, v, old_m[k])
-                                        for k, v in new_opt["momentum"].items()}}
-                good = torch.where(finite, state.good_steps + 1,
-                                   torch.zeros_like(state.good_steps))
-                grow = finite & (good >= guard.growth_interval)
-                new_scale = torch.where(
-                    finite,
-                    torch.where(grow, (scale * guard.growth_factor).clamp(
-                        max=guard.max_scale), scale),
-                    (scale * guard.backoff_factor).clamp(min=guard.min_scale))
-                good = torch.where(grow, torch.zeros_like(good), good).to(torch.int32)
+                new_p, new_m = kops.guard_commit(
+                    finite, [state.params[k] for k in names], [new_params[k] for k in names],
+                    [old_m[k] for k in names], [new_opt["momentum"][k] for k in names])
+                new_params = dict(zip(names, new_p))
+                new_opt = {"momentum": dict(zip(names, new_m))}
+                new_scale, good = next_loss_scale(finite, scale, state.good_steps, guard)
         else:
             new_scale, good = state.loss_scale, state.good_steps
 

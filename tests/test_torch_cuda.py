@@ -241,13 +241,15 @@ def test_tiny_resnet_trains_the_same_on_the_card_and_the_host(cuda):
     assert n_lars > 0
     # every leaf, LARS and skip, in two launches a step
     # and each of the 9 BNs (stem, 2 blocks x 3, 2 projections) through the
-    # BN kernels, two launches forward and two backward a step
+    # BN kernels, two launches forward and two backward a step; the guard
+    # one unscale and one commit a step
     assert ops.launch_counts() == {"lars_update": 2 * 3, "ls_xent_fwd": 3,
                                    "ls_xent_bwd": 3, "flash_attn": 0,
                                    "flash_attn_f32": 0, "flash_attn_bwd": 0,
                                    "flash_attn_bwd_f32": 0, "bn_fwd_stats": 9 * 3,
                                    "bn_fwd_apply": 9 * 3, "bn_bwd_sums": 9 * 3,
-                                   "bn_bwd_dx": 9 * 3}
+                                   "bn_bwd_dx": 9 * 3, "guard_unscale_count": 3,
+                                   "guard_commit": 3}
     # cuDNN and the host sum convolutions in different orders
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         assert abs(a - b) <= 1e-4 * max(1.0, abs(b))

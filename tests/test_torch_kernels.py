@@ -26,6 +26,7 @@ from repro_torch.kernels.batchnorm import (bn_bwd_dx_cuda, bn_bwd_sums_cuda, bn_
                                            bn_fwd_stats_cuda)
 from repro_torch.kernels.flash_attn import (flash_attention_cuda, flash_attention_f32,
                                             flash_attention_tc)
+from repro_torch.kernels.guard import guard_commit_cuda, guard_unscale_count_cuda
 from repro_torch.kernels.lars_update import lars_update_cuda
 from repro_torch.kernels.ls_xent import ls_xent_bwd_cuda, ls_xent_fwd_cuda
 
@@ -240,11 +241,15 @@ def test_cpu_tensors_launch_no_kernel():
                         torch.randn(1, 8, 1, 32))
     h = torch.randn(2, 8, 3, 3, requires_grad=True).to(memory_format=torch.channels_last)
     ops.batchnorm(h, torch.ones(8), torch.zeros(8), relu=True).sum().backward()
+    leaves = [torch.randn(8)]
+    _, count = ops.guard_unscale_count(leaves, torch.tensor(2.0))
+    ops.guard_commit(count == 0, leaves, leaves, leaves, leaves)
     assert ops.launch_counts() == {"lars_update": 0, "ls_xent_fwd": 0,
                                    "ls_xent_bwd": 0, "flash_attn": 0,
                                    "flash_attn_f32": 0, "flash_attn_bwd": 0,
                                    "flash_attn_bwd_f32": 0, "bn_fwd_stats": 0,
-                                   "bn_fwd_apply": 0, "bn_bwd_sums": 0, "bn_bwd_dx": 0}
+                                   "bn_fwd_apply": 0, "bn_bwd_sums": 0, "bn_bwd_dx": 0,
+                                   "guard_unscale_count": 0, "guard_commit": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -272,6 +277,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         bn_bwd_sums_cuda(h, h, None, mv, one, one, eps=1e-5, mask=1)
     with pytest.raises(ValueError):
         bn_bwd_dx_cuda(h, h, None, mv, one, one, mv, eps=1e-5, count=18, mask=1)
+    leaves, scale = [torch.ones(3)], torch.tensor(1.0)
+    with pytest.raises(ValueError):
+        guard_unscale_count_cuda(leaves, scale)
+    with pytest.raises(ValueError):
+        guard_commit_cuda(torch.tensor(True), leaves, leaves, leaves, leaves)
     assert ops.launch_counts()["ls_xent_fwd"] == 0
 
 

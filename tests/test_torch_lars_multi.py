@@ -103,9 +103,10 @@ def test_leaf_plan_covers_every_element_once_at_resnet50_shapes(resnet50_numels,
     # a fixed order: leaf by leaf, chunk by chunk, and the same plan again
     assert order == sorted(order)
     assert launches == klars.leaf_plan(numels, max_leaves=max_leaves, chunk=chunk)
-    # the leaves sit one after another in the flat outputs
+    # the leaves sit one after another in the flat outputs, each on a
+    # 16-byte boundary
     offsets = [o for launch in launches for o in launch.offsets]
-    assert offsets == list(np.cumsum([0] + numels[:-1]))
+    assert offsets == list(np.cumsum([0] + [-(-n // 4) * 4 for n in numels[:-1]]))
     assert all(len(launch.offsets) <= max_leaves for launch in launches)
     assert len(launches) == -(-len(numels) // max_leaves)
 
@@ -116,6 +117,14 @@ def test_resnet50_is_one_launch_pair(resnet50_numels):
     assert len(resnet50_numels) == 161 and len(launches) == 1
     blocks = launches[0].blocks
     assert blocks == sum(-(-n // klars.CHUNK) for n in resnet50_numels)
+
+
+def test_leaf_plan_starts_each_leaf_on_a_16_byte_boundary():
+    """fp32 leaves of any size start at multiples of 4 elements in the flat
+    outputs, as a leaf of its own allocation would: the BN kernels load a
+    scale and bias that LARS wrote with 16-byte loads."""
+    (launch,) = klars.leaf_plan([7, 1, 10, 3, 4, 5])
+    assert launch.offsets == (0, 8, 12, 24, 28, 32)
 
 
 def test_leaf_plan_refuses_empty_and_huge_leaves():
